@@ -1,0 +1,500 @@
+"""The wavefront path-tracing integrator (port of
+``surf_tpu.wavefront.integrator``, flattened-scene forward path).
+
+Every pixel owns one path per sample in a dense SoA lane state; each wave
+runs extend (closest-hit traversal), shade (lobe select, Schlick
+dielectric, Beer–Lambert, Russian roulette), connect (next-event
+estimation with any-hit shadow rays) and the bounce-ray update, all masked
+per lane.  Each lane consumes random numbers exactly as the reference's
+sequential CPU renderer does, so images agree with the NumPy oracle.
+
+JAX runs the wave loop on the device in ``lax.while_loop``; here the host
+drives it.  The loop reads the live-lane count once per wave (a device
+sync), and the rejection samplers read their redraw flag once per round:
+the same checks at the same waves as the JAX loop, so per-lane results are
+unchanged.  Traversal is detached as in JAX; this slice takes no gradients.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..accel.bits import Hit, traverse_bits
+from ..core import rng, sampling
+from ..core.vecmath import (
+    F32_EPSILON,
+    F32_FAR_AWAY,
+    F32_INV_PI,
+    cross,
+    dot,
+    normalize,
+    radians,
+    reflect,
+)
+from ..scene.camera import CameraParams, ViewPlane, view_plane
+from ..scene.compile import TorchScene
+
+
+class RenderConfig(NamedTuple):
+    """Render configuration: the fields of ``surf_tpu``'s RenderConfig that
+    the flattened bitsru8 forward path reads, with the same names and
+    defaults.  The wave loop always runs until every path has terminated
+    or ``wave_limit`` waves (JAX's ``max_bounces=None`` mode)."""
+
+    width: int
+    height: int
+    spp: int
+    use_defocus: bool
+    num_lights: int
+    wave_limit: int = 128
+    block_rays: int = 1024       # rays per traversal packet
+    compact: bool = False        # partition live paths to the front ...
+    compact_every: int = 4       # ... on every k-th wave
+    ladder: int = 0              # width-ladder rungs (0 = off)
+    ladder_shrink: int = 4       # width divisor per rung
+    pixel_order: str = "native"  # lane -> pixel map: "native" or "morton"
+
+    @classmethod
+    def for_scene(cls, scene: TorchScene, width: int, height: int, spp: int,
+                  use_defocus: bool) -> "RenderConfig":
+        return cls(width=width, height=height, spp=spp,
+                   use_defocus=use_defocus, num_lights=scene.num_lights)
+
+
+class PathState(NamedTuple):
+    """Dense SoA lane state; ``pixel`` is the owning pixel, so compaction
+    can permute lanes."""
+
+    origin: torch.Tensor         # [N, 3]
+    direction: torch.Tensor      # [N, 3]
+    seed: torch.Tensor           # [N] int64 holding uint32
+    transmission: torch.Tensor   # [N, 3]
+    energy: torch.Tensor         # [N, 3]
+    last_specular: torch.Tensor  # [N] bool
+    in_medium: torch.Tensor      # [N] bool
+    alive: torch.Tensor          # [N] bool
+    pixel: torch.Tensor          # [N] int64
+
+
+def compact_paths(state: PathState) -> PathState:
+    """Stable partition: live lanes first, each group in its old order
+    (two cumsums and one scatter, then gathers — as in JAX)."""
+    alive = state.alive
+    n = alive.shape[0]
+    live_i = alive.to(torch.int64)
+    c_live = live_i.cumsum(0)
+    c_dead = (1 - live_i).cumsum(0)
+    pos = torch.where(alive, c_live - 1, c_live[-1] + c_dead - 1)
+    perm = torch.empty_like(pos)
+    perm[pos] = torch.arange(n, device=pos.device)
+    return PathState(*(x[perm] for x in state))
+
+
+# --------------------------------------------------------------------------
+# Stage 1: ray generation (ray_generation.comp:30-80, camera.h:59-87)
+# --------------------------------------------------------------------------
+
+def ray_generation(cfg: RenderConfig, vp: ViewPlane, seed: torch.Tensor,
+                   px: torch.Tensor, py: torch.Tensor):
+    """AA-jittered thin-lens primary rays, one per lane.  Returns (seed,
+    origin [N, 3], direction [N, 3])."""
+    seed, jx = rng.next_f32(seed)
+    seed, jy = rng.next_f32(seed)
+    fx = px.to(torch.float32) + (jx - 0.5)
+    fy = py.to(torch.float32) + (jy - 0.5)
+    u = fx * float(np.float32(1.0 / cfg.width))
+    v = fy * float(np.float32(1.0 / cfg.height))
+
+    if cfg.use_defocus:
+        radius = vp.focal_length * torch.tan(radians(vp.defocus_angle / 2.0))
+        du = vp.right * radius
+        dv = -1.0 * vp.up * radius
+        ones = torch.ones_like(seed, dtype=torch.bool)
+        seed, su, sv = sampling.unit_disk(seed, ones)
+        origin = vp.position + su[:, None] * du + sv[:, None] * dv
+    else:
+        origin = vp.position.expand(seed.shape[0], 3)
+
+    plane = vp.first_pixel + u[:, None] * vp.u_vector + v[:, None] * vp.v_vector
+    direction = normalize(plane - origin)
+    return seed, origin, direction
+
+
+# --------------------------------------------------------------------------
+# Stages 2-4: extend / shade / connect in one masked bounce step
+# --------------------------------------------------------------------------
+
+def _traverse(scene: TorchScene, cfg: RenderConfig, origin, direction, t_max,
+              active, any_hit: bool) -> Hit:
+    return traverse_bits(scene.trace, origin, direction, t_max, active,
+                         any_hit=any_hit, block_rays=cfg.block_rays)
+
+
+def _sample_background(scene: TorchScene, direction):
+    """Scene::sampleBackground (scene.cpp:35-51)."""
+    if scene.bg_type != 1:
+        return scene.bg_color.expand(direction.shape)
+    alpha = 0.5 * (1.0 + direction[:, 1])
+    return (alpha[:, None] * scene.bg_gradient_b
+            + (1.0 - alpha)[:, None] * scene.bg_gradient_a)
+
+
+def _emittance(scene: TorchScene, mat):
+    return scene.mat_emission_strength[mat, None] * scene.mat_emission_color[mat]
+
+
+def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState:
+    """One wave: extend -> shade -> connect -> bounce-ray update."""
+    n = s.origin.shape[0]
+    dev = s.origin.device
+
+    # ---- EXTEND: closest hit ---------------------------------------------
+    hit = _traverse(scene, cfg, s.origin, s.direction,
+                    torch.full((n,), F32_FAR_AWAY, device=dev), s.alive,
+                    any_hit=False)
+    found = hit.prim >= 0
+    slot = hit.prim.clamp(min=0)
+    g = scene.perm[slot]  # original-order triangle id
+    inst = scene.tri_inst[slot]
+    v0 = scene.samp_v0[g]
+    v1 = scene.samp_v1[g]
+    v2 = scene.samp_v2[g]
+    n0_ = scene.samp_n0[g]
+    n1_ = scene.samp_n1[g]
+    n2_ = scene.samp_n2[g]
+    t, u, v = _reintersect(s.origin, s.direction, v0, v1, v2)
+
+    miss = s.alive & ~found
+    energy = torch.where(
+        miss[:, None],
+        s.energy + s.transmission * _sample_background(scene, s.direction),
+        s.energy,
+    )
+    alive = s.alive & found
+
+    mat = scene.inst_material[inst]
+
+    # ---- light hit termination (ray_shade.comp:64-69) ----------------------
+    hit_light = alive & scene.mat_is_light[mat]
+    lit = hit_light & s.last_specular
+    energy = torch.where(
+        lit[:, None], energy + s.transmission * _emittance(scene, mat), energy)
+    alive = alive & ~hit_light
+
+    # ---- SHADE (ray_shade.comp:71-189, renderer.cpp:354-459) ---------------
+    # Miss lanes re-intersected slot 0 with an unrelated ray (t/u/v may be
+    # +-inf); neutral values keep every consumer finite.  Every consumer is
+    # masked by alive, a subset of found, so the image is unchanged.
+    t = torch.where(found, t, 0.0)
+    u = torch.where(found, u, 0.25)
+    v = torch.where(found, v, 0.25)
+    medium_scale = torch.where(
+        s.in_medium[:, None],
+        torch.exp(scene.mat_absorption[mat] * -t[:, None]),
+        1.0,
+    )
+    I = s.origin + t[:, None] * s.direction
+    N = u[:, None] * n0_ + v[:, None] * n2_ + (1.0 - u - v)[:, None] * n1_
+    N = normalize(N)
+
+    seed, r_lobe = rng.next_f32_masked(s.seed, alive)
+    N = torch.where(dot(s.direction, N)[:, None] > 0, -N, N)
+
+    refl = scene.mat_reflectivity[mat]
+    refr = scene.mat_refractivity[mat]
+    albedo = scene.mat_albedo[mat]
+    m_spec = alive & (r_lobe < refl)
+    m_diel = alive & ~m_spec & (r_lobe < refl + refr)
+    m_diff = alive & ~m_spec & ~m_diel
+
+    refl_dir = reflect(s.direction, N)
+    r_out = torch.zeros_like(s.direction)
+
+    # specular mirror
+    r_out = torch.where(m_spec[:, None], refl_dir, r_out)
+    spec_trans = s.transmission * albedo * medium_scale
+    new_trans = torch.where(m_spec[:, None], spec_trans, s.transmission)
+    new_last_spec = m_spec | s.last_specular
+
+    # dielectric with Schlick Fresnel (renderer.cpp:376-406).  Non-dielectric
+    # materials carry ior = 0; ior is read only on m_diel lanes, so 1 is
+    # substituted elsewhere to keep n1 / n2 finite.
+    ior = torch.where(m_diel, scene.mat_ior[mat], 1.0)
+    n1 = torch.where(s.in_medium, ior, 1.0)
+    n2 = torch.where(s.in_medium, 1.0, ior)
+    ior_ratio = n1 / n2
+    cos_i = -dot(s.direction, N)
+    cos_theta2 = 1.0 - ior_ratio * ior_ratio * (1.0 - cos_i * cos_i)
+    can_refract = cos_theta2 > 0
+    a_ = n1 - n2
+    b_ = n1 + n2
+    r0 = (a_ * a_) / (b_ * b_)
+    c_ = 1.0 - cos_i
+    fresnel = r0 + (1.0 - r0) * (c_ * c_ * c_ * c_ * c_)
+    seed, r_fr = rng.next_f32_masked(seed, m_diel & can_refract)
+    must_refract = m_diel & can_refract & (r_fr > fresnel)
+    # The sqrt argument is floored at 1e-12 as in JAX (it is consumed only
+    # where cos_theta2 > 0).
+    refract_dir = (
+        ior_ratio[:, None] * s.direction
+        + (ior_ratio * cos_i
+           - torch.sqrt(cos_theta2.abs().clamp(min=1e-12)))[:, None] * N
+    )
+    r_out = torch.where(
+        m_diel[:, None],
+        torch.where(must_refract[:, None], refract_dir, refl_dir),
+        r_out,
+    )
+    new_trans = torch.where(m_diel[:, None], spec_trans, new_trans)
+    new_last_spec = m_diel | new_last_spec
+    new_in_medium = torch.where(must_refract, ~s.in_medium, s.in_medium)
+
+    # diffuse: cosine bounce + NEE + RR
+    seed, cos_dir = sampling.cosine_hemisphere(seed, N, m_diff)
+    r_out = torch.where(m_diff[:, None], cos_dir, r_out)
+    cos_theta = dot(N, cos_dir)
+    brdf = albedo * F32_INV_PI
+
+    if cfg.num_lights > 0:
+        seed, energy = _next_event(scene, cfg, seed, m_diff, I, N, brdf,
+                                   s.transmission, energy)
+
+    # Russian roulette (renderer.cpp:446-454)
+    p = s.transmission.amax(dim=1).clamp(0.0, 1.0)
+    seed, r_rr = rng.next_f32_masked(seed, m_diff)
+    rr_kill = m_diff & (p < r_rr)
+    alive = alive & ~rr_kill
+    m_diff_live = m_diff & ~rr_kill
+    # pdf 1 on non-diffuse lanes and p floored at 1e-12 keep the masked
+    # branch finite (as in JAX); neither changes a consumed value.
+    diffuse_pdf = torch.where(m_diff, cos_theta * F32_INV_PI, 1.0)
+    inv_pdf = 1.0 / diffuse_pdf
+    rr_scale = 1.0 / torch.where(m_diff, p.clamp(min=1e-12), 1.0)
+    diff_trans = (
+        s.transmission
+        * cos_theta[:, None] * inv_pdf[:, None] * brdf
+        * medium_scale * rr_scale[:, None]
+    )
+    new_trans = torch.where(m_diff_live[:, None], diff_trans, new_trans)
+    new_last_spec = new_last_spec & ~m_diff_live
+
+    origin = torch.where(alive[:, None], I + F32_EPSILON * r_out, s.origin)
+    direction = torch.where(alive[:, None], r_out, s.direction)
+
+    return PathState(
+        origin=origin,
+        direction=direction,
+        seed=seed,
+        transmission=torch.where(alive[:, None], new_trans, s.transmission),
+        energy=energy,
+        last_specular=torch.where(alive, new_last_spec, s.last_specular),
+        in_medium=torch.where(alive, new_in_medium, s.in_medium),
+        alive=alive,
+        pixel=s.pixel,
+    )
+
+
+def _reintersect(origin, direction, v0, v1, v2):
+    """Möller–Trumbore at a fixed triangle (no tests).  |a| is clamped at
+    1e-12 as in JAX: lanes the traversal reports found have |a| >= 1e-5, and
+    miss lanes (re-intersecting slot 0) stay finite."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    h = cross(direction, e2)
+    a = dot(e1, h)
+    a = torch.where(a.abs() < 1e-12, torch.where(a < 0, -1e-12, 1e-12), a)
+    f = 1.0 / a
+    srel = origin - v0
+    u = f * dot(srel, h)
+    q = cross(srel, e1)
+    v = f * dot(direction, q)
+    t = f * dot(e2, q)
+    return t, u, v
+
+
+def _next_event(scene: TorchScene, cfg: RenderConfig, seed, m_diff, I, N,
+                brdf, transmission, energy):
+    """NEE: sample one light instance and a point on it, trace an any-hit
+    shadow ray (ray_shade.comp:125-174 + ray_connect.comp:178-212).  RNG
+    order per diffuse lane: light pick, u, v, triangle id."""
+    seed, li_raw = rng.next_u32_masked(seed, m_diff)
+    light_inst = scene.light_inst[li_raw % cfg.num_lights]
+    seed, su = rng.next_f32_masked(seed, m_diff)
+    seed, sv_raw = rng.next_f32_masked(seed, m_diff)
+    sv = sv_raw * (1.0 - su)
+    seed, ti_raw = rng.next_u32_masked(seed, m_diff)
+    tri_local = ti_raw % scene.inst_tri_count[light_inst]
+    tri_idx = scene.inst_tri_offset[light_inst] + tri_local
+
+    w = 1.0 - su - sv
+    p_pos = (su[:, None] * scene.samp_v0[tri_idx]
+             + sv[:, None] * scene.samp_v2[tri_idx]
+             + w[:, None] * scene.samp_v1[tri_idx])
+    p_raw = (su[:, None] * scene.samp_n0[tri_idx]
+             + sv[:, None] * scene.samp_n2[tri_idx]
+             + w[:, None] * scene.samp_n1[tri_idx])
+    p_nrm = normalize(p_raw)
+    IL = p_pos - I
+    L = normalize(IL)
+    SO = I + F32_EPSILON * L
+    sr_depth = torch.sqrt(dot(IL, IL)) - 2.0 * F32_EPSILON
+    falloff = 1.0 / dot(IL, IL)
+    cos_o = dot(N, L)
+    cos_li = dot(p_nrm, -L)
+    nee_ok = m_diff & (cos_o > 0) & (cos_li > 0)
+
+    # CONNECT: any-hit occlusion
+    occ = _traverse(scene, cfg, SO, L, sr_depth, nee_ok, any_hit=True)
+    unoccluded = nee_ok & (occ.prim < 0)
+
+    area = scene.inst_area[light_inst]
+    SA = cos_li * area * falloff
+    l_emit = _emittance(scene, scene.inst_material[light_inst])
+    Ld = l_emit * SA[:, None] * brdf * cos_o[:, None] * float(cfg.num_lights)
+    energy = torch.where(unoccluded[:, None], energy + transmission * Ld, energy)
+    return seed, energy
+
+
+# --------------------------------------------------------------------------
+# Sample / frame loops (replace the host wave loop, renderer.cpp:1030-1106)
+# --------------------------------------------------------------------------
+
+def _wave(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState) -> PathState:
+    if cfg.compact and i % cfg.compact_every == 0:
+        s = compact_paths(s)
+    return bounce_step(scene, cfg, s)
+
+
+def _run_waves(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState,
+               thresh: int | None = None):
+    """Bounce while some lane is alive, fewer than wave_limit waves have run
+    and (with ``thresh``) more than ``thresh`` lanes are alive.  One device
+    sync per wave reads the live count."""
+    while i < cfg.wave_limit:
+        live = int(s.alive.sum())
+        if live == 0 or (thresh is not None and live <= thresh):
+            break
+        s = _wave(scene, cfg, i, s)
+        i += 1
+    return i, s
+
+
+def _bounce_loop(scene: TorchScene, cfg: RenderConfig,
+                 state: PathState) -> PathState:
+    """Bounce until every path terminates or the wave cap."""
+    return _run_waves(scene, cfg, 0, state)[1]
+
+
+def _bounce_loop_ladder(scene: TorchScene, cfg: RenderConfig, state: PathState):
+    """Width-ladder wave loop: run at full width while more than
+    1/ladder_shrink of the lanes live, then stable-compact, bank the dead
+    suffix, and go on with the live prefix at 1/ladder_shrink the width
+    (up to ``ladder`` rungs, none narrower than 1024 lanes).  Each lane sees
+    the same op sequence as in the plain loop.  Returns (seed, energy) in
+    pixel order."""
+    if cfg.ladder_shrink < 2:
+        raise ValueError("ladder_shrink must be >= 2 (1 makes every rung a no-op)")
+    n = state.seed.shape[0]
+    widths = []
+    m = n
+    for _ in range(cfg.ladder):
+        m //= cfg.ladder_shrink
+        if m >= 1024:
+            widths.append(m)
+
+    banked = []  # (pixel, seed, energy) of lanes retired from the loop
+    i = 0
+    for m in widths:
+        i, state = _run_waves(scene, cfg, i, state, m)
+        state = compact_paths(state)
+        banked.append((state.pixel[m:], state.seed[m:], state.energy[m:]))
+        state = PathState(*(x[:m] for x in state))
+    i, state = _run_waves(scene, cfg, i, state)
+    banked.append((state.pixel, state.seed, state.energy))
+
+    seed_out = torch.zeros(n, dtype=state.seed.dtype, device=state.seed.device)
+    energy_out = torch.zeros(n, 3, dtype=torch.float32, device=state.seed.device)
+    for p, sd, e in banked:
+        seed_out[p] = sd
+        energy_out[p] = e
+    return seed_out, energy_out
+
+
+def render_sample(scene: TorchScene, cfg: RenderConfig, vp: ViewPlane,
+                  seed, px, py, pixel_ids=None):
+    """One sample for every pixel lane: raygen + the full bounce loop.
+    ``pixel_ids`` maps lane i to a pixel other than i (morton order);
+    seed and energy come back in pixel order."""
+    seed, origin, direction = ray_generation(cfg, vp, seed, px, py)
+    n = seed.shape[0]
+    dev = seed.device
+    state = PathState(
+        origin=origin,
+        direction=direction,
+        seed=seed,
+        transmission=torch.ones(n, 3, device=dev),
+        energy=torch.zeros(n, 3, device=dev),
+        last_specular=torch.ones(n, dtype=torch.bool, device=dev),
+        in_medium=torch.zeros(n, dtype=torch.bool, device=dev),
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        pixel=(torch.arange(n, device=dev) if pixel_ids is None else pixel_ids),
+    )
+    if cfg.ladder > 0:
+        return _bounce_loop_ladder(scene, cfg, state)
+    state = _bounce_loop(scene, cfg, state)
+    if cfg.compact or pixel_ids is not None:
+        order = torch.empty_like(state.pixel)
+        order[state.pixel] = torch.arange(n, device=dev)
+        return state.seed[order], state.energy[order]
+    return state.seed, state.energy
+
+
+def lane_pixel_perm(cfg: RenderConfig, device: torch.device):
+    """Lane -> pixel permutation for cfg.pixel_order ([N] int64), or None
+    for the identity.  "morton" interleaves the x/y bits of the pixel
+    coordinate (stable argsort, so any W/H works)."""
+    if cfg.pixel_order == "native":
+        return None
+    if cfg.pixel_order != "morton":
+        raise ValueError(f"unknown pixel_order {cfg.pixel_order!r}")
+    n = cfg.width * cfg.height
+    px = np.arange(n, dtype=np.uint64) % cfg.width
+    py = np.arange(n, dtype=np.uint64) // cfg.width
+    code = np.zeros(n, np.uint64)
+    for b in range(max(cfg.width, cfg.height).bit_length()):
+        code |= ((px >> np.uint64(b)) & np.uint64(1)) << np.uint64(2 * b)
+        code |= ((py >> np.uint64(b)) & np.uint64(1)) << np.uint64(2 * b + 1)
+    return torch.as_tensor(np.argsort(code, kind="stable"), device=device)
+
+
+def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
+                        cam: CameraParams, seed0: torch.Tensor):
+    """Render cfg.spp samples continuing the per-pixel seed streams
+    ``seed0``; returns (radiance sums [H, W, 3], final seeds).  Chunking a
+    large spp budget into several calls gives the same image as one call."""
+    vp = view_plane(cam, cfg.width, cfg.height)
+    n = cfg.width * cfg.height
+    dev = seed0.device
+    perm = lane_pixel_perm(cfg, dev)
+    lane_pixel = torch.arange(n, device=dev) if perm is None else perm
+    px = lane_pixel % cfg.width
+    py = lane_pixel // cfg.width
+    seed = seed0
+    acc = torch.zeros(n, 3, device=dev)
+    for _ in range(cfg.spp):
+        seed_lane = seed if perm is None else seed[perm]
+        seed, energy = render_sample(scene, cfg, vp, seed_lane, px, py,
+                                     pixel_ids=perm)
+        acc = acc + energy
+    return acc.reshape(cfg.height, cfg.width, 3), seed
+
+
+def initial_seeds(cfg: RenderConfig, total_samples: int,
+                  device: torch.device) -> torch.Tensor:
+    """Per-pixel seeds for a frame at ``total_samples`` (renderer.cpp:169)."""
+    n = cfg.width * cfg.height
+    return rng.pixel_seed(torch.arange(n, dtype=torch.int64, device=device),
+                          total_samples)
