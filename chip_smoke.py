@@ -5,7 +5,8 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
-  2. build: compiles surf_tpu_torch/csrc/*.cu with nvcc (sm_90a);
+  2. build: compiles surf_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
+     process per source, all started together;
   3. kernel: the leaf-row kernel against its plain PyTorch version on the
      card, at the bench's shapes (512x512 = 262,144 rays of the indoor
      scene, 2048-ray packets): primary rays and one bounce's rays, closest
@@ -13,13 +14,32 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      with one all-dead packet.  Expected bit-identical (--fmad=false);
      else the gate of the JAX tests: prim equal except coincident-t ties,
      t within rtol 1e-6;
+  3b. inst kernel: the instanced leaf-row kernel against its plain version
+     on the pure two-level stress scene (32 instances, 512x512 primary
+     rays and one bounce's rays, 2048-ray packets, one all-dead packet):
+     closest, any-hit (t_max 16 primary, 4 bounce) and per-instance sweeps
+     (inst_cap=8), with the same gates;
   4. bench: the bench config (bench.py: indoor scene, 512x512 @ 16 spp as
      16 one-spp calls, wave cap 32, 2048-ray packets, Morton lanes,
-     compaction every 16 waves, ladder 6 / shrink 2) through the kernel:
-     frame time, rays/s, energy and the kernel's launch counts;
-  5. parity: 64x64 @ 2 spp with the bench knobs through the kernel and
-     through the plain version on the card (energy within 1%, relative
-     L1 under 3%; bit equality expected).
+     compaction every 16 waves, ladder 6 / shrink 2) through the leaf-row
+     kernel: frame time, rays/s, energy and the kernel's launch counts;
+  4b. twolevelp bench: the 32-instance stress scene, pure two-level, at
+     512x512 @ 16 spp with the bench knobs through the instanced kernel:
+     frame time, rays/s, energy, launches, peak memory and the scene's
+     device bytes against the flattened compile of the same scene, whose
+     bitsru8 frame is timed beside it;
+  4c. capacity: the 200-instance stress scene (202 instances, 256,014
+     effective triangles), pure two-level, 256x256 @ 1 spp: a finite,
+     non-negative image with positive energy, and the instanced kernel
+     against its plain version on one bounce's rays (closest and any-hit),
+     with the gates of 3b;
+  5. parity: 64x64 @ 2 spp with the bench knobs through the leaf-row kernel
+     and through its plain version on the card (energy within 1%, relative
+     L1 under 3%; bit equality expected);
+  5b. twolevelp parity: the stress scene at 64x64 @ 2 spp through the
+     instanced kernel and through its plain version (the same gates), and
+     the diffuse box scene twolevelp against flattened bitsru8 (under 1%
+     of pixels off by more than 1e-3, energy within 0.5%).
 Then a JSON line of per-kernel results and, last, the device summary.
 Imports no JAX.
 """
@@ -35,9 +55,7 @@ from unittest import mock
 import numpy as np
 import torch
 
-from surf_tpu_torch.accel import _build, bits
-from surf_tpu_torch.accel.leaf_rows import (LAUNCHES, leaf_rows,
-                                            leaf_rows_plain, reset_launches)
+from surf_tpu_torch.accel import _build, bits, inst_rows, instanced, leaf_rows
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -46,13 +64,24 @@ from surf_tpu_torch.wavefront import integrator as wi
 TPU_ENERGY = 87157.2109375  # surf_tpu on a TPU v5e, BENCH_r05.json
 W = H = 512
 SPP = 16
-BENCH_KNOBS = dict(wave_limit=32, block_rays=2048, compact=True,
-                   compact_every=16, ladder=6, ladder_shrink=2,
-                   pixel_order="morton")
+STRESS_N = 32
+BENCH_KNOBS = wi.BENCH_KNOBS
+BLOCK = BENCH_KNOBS["block_rays"]
+# The least time the card could take for the same work: H100 SXM
+# peaks at 700 W, 67 TFLOP/s FP32 outside the tensor cores and 3.35 TB/s.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+MT_FLOPS = 48      # one ray x triangle Moller-Trumbore test (division as one)
+XF_FLOPS = 33      # one ray into one instance's object space (origin + dir)
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def phase_device() -> torch.device:
@@ -80,9 +109,16 @@ def phase_build() -> None:
         say(f"[2 build]   {ln}")
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, dev: torch.device) -> float:
+    """Mean ms per call: CUDA events on the card, the host clock elsewhere
+    (CPU rehearsals only)."""
     fn()
-    torch.cuda.synchronize()
+    _sync(dev)
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -94,66 +130,136 @@ def _time_ms(fn, reps: int) -> float:
 
 
 def _compare(got, want):
-    """(bit-identical?, max |dt| over lanes where both hit, gate holds?)."""
-    t_k, r_k, u_k, v_k = got
-    t_p, r_p, u_p, v_p = want
+    """(bit-identical?, max |dt| over lanes where both hit, gate holds?):
+    slot (and instance) equal except at coincident-t ties, t within rtol
+    1e-6 where both hit."""
+    t_k, r_k = got[0], got[1]
+    t_p, r_p = want[0], want[1]
     bit = all(torch.equal(x, y) for x, y in zip(got, want))
     both = (r_k >= 0) & (r_p >= 0)
     err = float((t_k - t_p)[both].abs().max()) if bool(both.any()) else 0.0
-    tie = t_k == t_p
-    gate = bool(((r_k == r_p) | tie).all()) and bool(
+    same = r_k == r_p
+    if len(got) > 4:
+        same &= got[4] == want[4]
+    gate = bool((same | (t_k == t_p)).all()) and bool(
         torch.allclose(t_k[both], t_p[both], rtol=1e-6, atol=0.0))
     return bit, err, gate
 
 
-def phase_kernel(dev: torch.device) -> dict:
-    scene = compile_scene(builtin.make_indoor_scene(), dev)
-    cfg = wi.RenderConfig.for_scene(scene, W, H, 1, use_defocus=True)._replace(**BENCH_KNOBS)
-    cam = CameraParams.from_camera(builtin.make_indoor_camera(W, H), dev)
-    vp = view_plane(cam, W, H)
+def _bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(bound ms, what bounds it): the larger of the operations over the FP32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def _first_wave(scene, cfg, cam, dev, w, h):
+    """Primary rays of a Morton-ordered frame with one all-dead packet, and
+    the state after one bounce: (origin, direction, alive) for each."""
+    vp = view_plane(cam, w, h)
     perm = wi.lane_pixel_perm(cfg, dev)
     seed = wi.initial_seeds(cfg, 0, dev)[perm]
-    seed, origin, direction = wi.ray_generation(cfg, vp, seed, perm % W, perm // W)
-    n = W * H
+    seed, origin, direction = wi.ray_generation(cfg, vp, seed, perm % w, perm // w)
+    n = w * h
     alive = torch.ones(n, dtype=torch.bool, device=dev)
-    alive[5 * 2048:6 * 2048] = False  # one all-dead packet
+    alive[5 * BLOCK:6 * BLOCK] = False  # one all-dead packet
     state = wi.PathState(origin, direction, seed, torch.ones(n, 3, device=dev),
                          torch.zeros(n, 3, device=dev), alive.clone(),
                          torch.zeros(n, dtype=torch.bool, device=dev), alive, perm)
     bounced = wi.bounce_step(scene, cfg, state)
+    return (origin, direction, alive), (bounced.origin, bounced.direction, bounced.alive)
+
+
+def _ray_sets(primary, bounce, n, dev, t_any_primary, cap):
     far = torch.full((n,), 1e30, device=dev)
-    sets = {
-        "primary/closest": (origin, direction, far, alive, False, 0),
-        "bounce/closest": (bounced.origin, bounced.direction, far, bounced.alive, False, 0),
-        "primary/any_hit": (origin, direction, torch.full((n,), 8.0, device=dev), alive, True, 0),
-        "bounce/any_hit": (bounced.origin, bounced.direction,
-                           torch.full((n,), 4.0, device=dev), bounced.alive, True, 0),
-        "primary/sweep": (origin, direction, far, alive, False, 8),
-        "bounce/sweep": (bounced.origin, bounced.direction, far, bounced.alive, False, 8),
+    return {
+        "primary/closest": (*primary, far, False, 0),
+        "bounce/closest": (*bounce, far, False, 0),
+        "primary/any_hit": (*primary, torch.full((n,), t_any_primary, device=dev), True, 0),
+        "bounce/any_hit": (*bounce, torch.full((n,), 4.0, device=dev), True, 0),
+        "primary/sweep": (*primary, far, False, cap),
+        "bounce/sweep": (*bounce, far, False, cap),
     }
+
+
+def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    primary, bounce = _first_wave(scene, cfg, cam, dev, w, h)
     out = {"leaf_rows_closest": {"max_abs_err": 0.0}, "leaf_rows_any": {"max_abs_err": 0.0}}
-    for label, (o, d, tm, act, any_hit, cap) in sets.items():
-        rays, lists, n_rows = bits.prepare(scene.trace, o, d, tm, act, 2048, cap)
-        args = (scene.trace.ltab, lists, n_rows, rays, 2048, any_hit)
-        got = leaf_rows(*args)
-        want = leaf_rows_plain(*args)
-        torch.cuda.synchronize()
+    for label, (o, d, act, tm, any_hit, cap) in _ray_sets(primary, bounce, w * h, dev,
+                                                          8.0, 8).items():
+        rays, lists, n_rows = bits.prepare(scene.trace, o, d, tm, act, BLOCK, cap)
+        args = (scene.trace.ltab, lists, n_rows, rays, BLOCK, any_hit)
+        got = leaf_rows.leaf_rows(*args)
+        want = leaf_rows.leaf_rows_plain(*args)
+        _sync(dev)
         bit, err, gate = _compare(got, want)
         if not (bit or gate):
             raise AssertionError(f"{label}: kernel disagrees with the plain version "
                                  f"(max |dt| {err})")
-        k_ms = _time_ms(lambda: leaf_rows(*args), 20)
-        p_ms = _time_ms(lambda: leaf_rows_plain(*args), 3)
+        k_ms = _time_ms(lambda: leaf_rows.leaf_rows(*args), 20, dev)
+        p_ms = _time_ms(lambda: leaf_rows.leaf_rows_plain(*args), 3, dev)
+        E = scene.trace.ltab.shape[0]
+        rows = torch.where(n_rows < 0, E, n_rows)
+        tests = float(rows.sum()) * 8 * BLOCK
+        bound_ms, bound_by = _bound(tests * MT_FLOPS, _nbytes(*args[:4]) + 16 * rays.shape[1])
         sweeps = int((n_rows < 0).sum())
         say(f"[3 kernel] {label}: {'bit-identical' if bit else 'within gate'}, "
             f"max |dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}, {tests:.4g} tests), "
             f"packets {lists.shape[0]} (sweep {sweeps}), cap {lists.shape[1]}, "
             f"mean list {float(n_rows.clamp(min=0).float().mean()):.1f} rows")
-        name = "leaf_rows_any" if any_hit else "leaf_rows_closest"
-        rec = out[name]
+        rec = out["leaf_rows_any" if any_hit else "leaf_rows_closest"]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if label in ("bounce/closest", "bounce/any_hit"):
-            rec["ms"], rec["plain_ms"] = k_ms, p_ms
+            rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def phase_inst_kernel(dev: torch.device, w: int = W, h: int = H,
+                      n_inst: int = STRESS_N) -> dict:
+    scene_h = builtin.make_instanced_stress_scene(n_inst)
+    scenes = {0: compile_scene(scene_h, dev, two_level="pure"),
+              8: compile_scene(scene_h, dev, two_level="pure", inst_cap=8)}
+    ps = scenes[0]
+    cfg = wi.RenderConfig.for_scene(ps, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_stress_camera(w, h, n_inst), dev)
+    primary, bounce = _first_wave(ps, cfg, cam, dev, w, h)
+    out = {"inst_rows_closest": {"max_abs_err": 0.0}, "inst_rows_any": {"max_abs_err": 0.0}}
+    for label, (o, d, act, tm, any_hit, cap) in _ray_sets(primary, bounce, w * h, dev,
+                                                          16.0, 8).items():
+        tr = scenes[cap].inst
+        rays, lists, counts = instanced.prepare(tr, o, d, tm, act, BLOCK)
+        args = (tr.ltab, lists, counts, tr.segs, tr.inv, rays, BLOCK, any_hit)
+        got = inst_rows.inst_rows(*args)
+        want = inst_rows.inst_rows_plain(*args)
+        _sync(dev)
+        bit, err, gate = _compare(got, want)
+        if not (bit or gate):
+            raise AssertionError(f"{label}: instanced kernel disagrees with the plain "
+                                 f"version (max |dt| {err})")
+        k_ms = _time_ms(lambda: inst_rows.inst_rows(*args), 10, dev)
+        p_ms = _time_ms(lambda: inst_rows.inst_rows_plain(*args), 2, dev)
+        rows = torch.where(counts < 0, tr.segs[2][None, :], counts)
+        pairs = int((counts != 0).sum())
+        tests = float(rows.sum()) * 8 * BLOCK
+        bound_ms, bound_by = _bound(tests * MT_FLOPS + pairs * BLOCK * XF_FLOPS,
+                                    _nbytes(*args[:6]) + 20 * rays.shape[1])
+        say(f"[3b inst] {label}: {'bit-identical' if bit else 'within gate'}, "
+            f"max |dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {bound_ms:.3f} ms ({bound_by}, {tests:.4g} tests), "
+            f"packets {lists.shape[0]}, pairs {pairs} (sweep {int((counts < 0).sum())}), "
+            f"mean list {float(rows.sum()) / max(pairs, 1):.1f} rows")
+        rec = out["inst_rows_any" if any_hit else "inst_rows_closest"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if label in ("bounce/closest", "bounce/any_hit"):
+            rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
 
 
@@ -168,73 +274,226 @@ def _render(scene, cfg, cam, dev, total_samples, calls):
     return acc
 
 
-def phase_bench(dev: torch.device) -> dict:
-    scene = compile_scene(builtin.make_indoor_scene(), dev)
-    cfg = wi.RenderConfig.for_scene(scene, W, H, 1, use_defocus=True)._replace(**BENCH_KNOBS)
-    cam = CameraParams.from_camera(builtin.make_indoor_camera(W, H), dev)
-    _render(scene, cfg, cam, dev, 0, 1)  # warm-up: allocator, first launches
-    torch.cuda.synchronize()
-    reset_launches()
-    times = []
-    for frame in (1, 2):  # bench.py times frames at total_samples 16 and 32
-        t0 = time.perf_counter()
-        img = _render(scene, cfg, cam, dev, frame * SPP, SPP)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(LAUNCHES)
+def _check_image(img, what: str, spp: int) -> float:
     img = img.cpu().numpy()
     if not (np.isfinite(img).all() and (img >= 0).all()):
-        raise AssertionError("bench image has non-finite or negative values")
-    energy = float(img.sum()) / SPP
+        raise AssertionError(f"{what} image has non-finite or negative values")
+    energy = float(img.sum()) / spp
     if not energy > 0:
-        raise AssertionError(f"bench energy {energy} is not positive")
+        raise AssertionError(f"{what} energy {energy} is not positive")
+    return energy
+
+
+def _timed_frames(scene, cfg, cam, dev, spp, frames):
+    """Frame times (s) and the last image, frame k at total_samples k*spp."""
+    times, img = [], None
+    for frame in range(1, frames + 1):
+        t0 = time.perf_counter()
+        img = _render(scene, cfg, cam, dev, frame * spp, spp)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+    return times, img
+
+
+def _scene_bytes(scene) -> int:
+    """Device bytes of every tensor of a compiled scene (nested traces too)."""
+    total = 0
+    for x in scene:
+        if isinstance(x, torch.Tensor):
+            total += _nbytes(x)
+        elif isinstance(x, tuple):
+            total += _scene_bytes(x)
+    return total
+
+
+def phase_bench(dev: torch.device, w: int = W, h: int = H, spp: int = SPP) -> dict:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    _render(scene, cfg, cam, dev, 0, 1)  # warm-up: allocator, first launches
+    _sync(dev)
+    leaf_rows.reset_launches()
+    times, img = _timed_frames(scene, cfg, cam, dev, spp, 2)
+    launches = dict(leaf_rows.LAUNCHES)
+    energy = _check_image(img, "bench", spp)
     for name, k in launches.items():
-        if k <= 0:
+        if k <= 0 and dev.type == "cuda":
             raise AssertionError(f"{name} was never launched by the render")
     dt = sum(times) / len(times)
-    say(f"[4 bench] {W}x{H} @ {SPP} spp, frame times {['%.3f' % t for t in times]} s, "
-        f"mean {dt:.3f} s, {W * H * SPP / dt:.1f} rays/s")
+    say(f"[4 bench] {w}x{h} @ {spp} spp, frame times {['%.3f' % t for t in times]} s, "
+        f"mean {dt:.3f} s, {w * h * spp / dt:.1f} rays/s")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
     say(f"[4 bench] energy {energy!r} (TPU run of surf_tpu: {TPU_ENERGY!r}, "
         f"rel diff {(energy - TPU_ENERGY) / TPU_ENERGY:+.4%}); launches {launches}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"peak memory {peak:.2f} GiB")
     return launches
 
 
-def phase_parity(dev: torch.device) -> None:
-    w = h = 64
+def phase_twolevelp_bench(dev: torch.device, w: int = W, h: int = H, spp: int = SPP,
+                          n_inst: int = STRESS_N) -> dict:
+    scene_h = builtin.make_instanced_stress_scene(n_inst)
+    ps = compile_scene(scene_h, dev, two_level="pure")
+    cfg = wi.RenderConfig.for_scene(ps, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_stress_camera(w, h, n_inst), dev)
+    _render(ps, cfg, cam, dev, 0, 1)  # warm-up
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    inst_rows.reset_launches()
+    times, img = _timed_frames(ps, cfg, cam, dev, spp, 2)
+    launches = dict(inst_rows.LAUNCHES)
+    energy = _check_image(img, "twolevelp bench", spp)
+    for name, k in launches.items():
+        if k <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched by the twolevelp render")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    dt = sum(times) / len(times)
+    say(f"[4b twolevelp] stress {n_inst} ({len(scene_h.instances)} instances), {w}x{h} "
+        f"@ {spp} spp, frame times {['%.3f' % t for t in times]} s, mean {dt:.3f} s, "
+        f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {launches}, "
+        f"peak memory {peak:.2f} GiB")
+
+    fs = compile_scene(scene_h, dev)
+    fcfg = wi.RenderConfig.for_scene(fs, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    _render(fs, fcfg, cam, dev, 0, 1)  # warm-up
+    _sync(dev)
+    f_times, f_img = _timed_frames(fs, fcfg, cam, dev, spp, 2)
+    f_energy = _check_image(f_img, "flattened stress bench", spp)
+    f_dt = sum(f_times) / len(f_times)
+    say(f"[4b twolevelp] flattened bitsru8 of the same scene: frame times "
+        f"{['%.3f' % t for t in f_times]} s, mean {f_dt:.3f} s, "
+        f"{w * h * spp / f_dt:.1f} rays/s, energy {f_energy!r} "
+        f"(twolevelp rel diff {(energy - f_energy) / f_energy:+.4%})")
+    say(f"[4b twolevelp] device bytes: pure {_scene_bytes(ps)} "
+        f"(tables {_nbytes(ps.inst.ltab, ps.inst.box_lo, ps.inst.box_hi)}), "
+        f"flattened {_scene_bytes(fs)} "
+        f"(tables {_nbytes(fs.trace.ltab, fs.trace.box_lo, fs.trace.box_hi)})")
+    return launches
+
+
+def phase_capacity(dev: torch.device, w: int = 256, h: int = 256, n_inst: int = 200) -> dict:
+    scene_h = builtin.make_instanced_stress_scene(n_inst)
+    t0 = time.perf_counter()
+    ps = compile_scene(scene_h, dev, two_level="pure")
+    t_compile = time.perf_counter() - t0
+    cfg = wi.RenderConfig.for_scene(ps, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_stress_camera(w, h, n_inst), dev)
+    t0 = time.perf_counter()
+    img = _render(ps, cfg, cam, dev, 0, 1)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    energy = _check_image(img, "capacity", 1)
+    eff = sum(i.mesh.tri_count for i in scene_h.instances)
+    say(f"[4c capacity] stress {n_inst} ({len(scene_h.instances)} instances, {eff} "
+        f"effective triangles, {ps.obj_v0.shape[0]} stored), {w}x{h} @ 1 spp: "
+        f"compile {t_compile:.2f} s, frame {dt:.3f} s (first call), energy {energy!r}, "
+        f"device bytes {_scene_bytes(ps)}")
+    # the kernel against its plain version on one bounce's rays at this count
+    _, (o, d, act) = _first_wave(ps, cfg, cam, dev, w, h)
+    errs = {}
+    for name, any_hit, t in (("inst_rows_closest", False, 1e30), ("inst_rows_any", True, 4.0)):
+        rays, lists, counts = instanced.prepare(ps.inst, o, d, torch.full((w * h,), t, device=dev),
+                                                act, BLOCK)
+        args = (ps.inst.ltab, lists, counts, ps.inst.segs, ps.inst.inv, rays, BLOCK, any_hit)
+        got = inst_rows.inst_rows(*args)
+        want = inst_rows.inst_rows_plain(*args)
+        _sync(dev)
+        bit, errs[name], gate = _compare(got, want)
+        if not (bit or gate):
+            raise AssertionError(f"capacity {name}: instanced kernel disagrees with the "
+                                 f"plain version (max |dt| {errs[name]})")
+        say(f"[4c capacity] bounce/{'any_hit' if any_hit else 'closest'} kernel vs plain: "
+            f"{'bit-identical' if bit else 'within gate'}, max |dt| {errs[name]:.3g}, "
+            f"packets {lists.shape[0]}, list width {lists.shape[1]}, "
+            f"pairs {int((counts != 0).sum())} (sweep {int((counts < 0).sum())})")
+    return errs
+
+
+def _parity(img_a, img_b, what: str, rel_e_max: float, rel_l1_max: float) -> str:
+    a, b = img_a.cpu().numpy(), img_b.cpu().numpy()
+    e_a, e_b = float(a.sum()), float(b.sum())
+    rel_e = abs(e_a - e_b) / e_b
+    rel_l1 = float(np.abs(a - b).mean() / b.mean())
+    msg = (f"energy {e_a!r} vs {e_b!r} (rel {rel_e:.3g}), relL1 {rel_l1:.3g}, "
+           f"bit-identical {bool(np.array_equal(a, b))}")
+    if not (rel_e < rel_e_max and rel_l1 < rel_l1_max):
+        raise AssertionError(f"{what}: {msg}")
+    return msg
+
+
+def phase_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cfg = wi.RenderConfig.for_scene(scene, w, h, 2, use_defocus=True)._replace(**BENCH_KNOBS)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
-    img_k = _render(scene, cfg, cam, dev, 0, 1).cpu().numpy()
+    img_k = _render(scene, cfg, cam, dev, 0, 1)
     # the same render with the traversal's intersect swapped for the plain version
-    with mock.patch.object(bits, "leaf_rows", leaf_rows_plain):
-        img_p = _render(scene, cfg, cam, dev, 0, 1).cpu().numpy()
-    e_k, e_p = float(img_k.sum()), float(img_p.sum())
-    rel_e = abs(e_k - e_p) / e_p
-    rel_l1 = float(np.abs(img_k - img_p).mean() / img_p.mean())
-    say(f"[5 parity] {w}x{h} @ 2 spp: energy kernel {e_k!r} plain {e_p!r} "
-        f"(rel {rel_e:.3g}), relL1 {rel_l1:.3g}, bit-identical "
-        f"{bool(np.array_equal(img_k, img_p))}")
-    if not (rel_e < 0.01 and rel_l1 < 0.03):
-        raise AssertionError("kernel render disagrees with the plain render")
+    with mock.patch.object(bits, "leaf_rows", leaf_rows.leaf_rows_plain):
+        img_p = _render(scene, cfg, cam, dev, 0, 1)
+    say(f"[5 parity] {w}x{h} @ 2 spp, kernel vs plain: "
+        f"{_parity(img_k, img_p, 'leaf-row kernel render', 0.01, 0.03)}")
+
+
+def phase_twolevelp_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
+    ps = compile_scene(builtin.make_instanced_stress_scene(STRESS_N), dev, two_level="pure")
+    cfg = wi.RenderConfig.for_scene(ps, w, h, 2, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_stress_camera(w, h, STRESS_N), dev)
+    img_k = _render(ps, cfg, cam, dev, 0, 1)
+    with mock.patch.object(instanced, "inst_rows", inst_rows.inst_rows_plain):
+        img_p = _render(ps, cfg, cam, dev, 0, 1)
+    say(f"[5b parity] stress {STRESS_N} {w}x{h} @ 2 spp, kernel vs plain: "
+        f"{_parity(img_k, img_p, 'instanced kernel render', 0.01, 0.03)}")
+
+    box = builtin.make_diffuse_box_scene()
+    cam = CameraParams.from_camera(builtin.make_box_camera(2 * w, 2 * h), dev)
+    imgs = {}
+    for two_level in ("pure", False):
+        ts = compile_scene(box, dev, two_level=two_level)
+        bcfg = wi.RenderConfig.for_scene(ts, 2 * w, 2 * h, 1, use_defocus=True)._replace(
+            **BENCH_KNOBS)
+        imgs[bcfg.algo] = _render(ts, bcfg, cam, dev, 0, 1).cpu().numpy()
+    f, p = imgs["bitsru8"], imgs["twolevelp"]
+    off = float((np.abs(f - p).max(axis=2) > 1e-3).mean())
+    rel_e = abs(float(f.sum()) - float(p.sum())) / abs(float(f.sum()))
+    say(f"[5b parity] box {2 * w}x{2 * h} @ 1 spp, twolevelp vs bitsru8: energy "
+        f"{float(p.sum())!r} vs {float(f.sum())!r} (rel {rel_e:.3g}), pixels off by "
+        f">1e-3 {off:.4%}, bit-identical {bool(np.array_equal(f, p))}")
+    if not (off < 0.01 and rel_e < 0.005):
+        raise AssertionError("twolevelp render disagrees with the flattened render")
+
+
+KERNELS = {
+    "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
+    "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
+    "inst_rows_closest": ("surf_tpu_torch/csrc/inst_rows.cu",
+                          "surf_tpu/accel/pallas_instanced.py:260"),
+    "inst_rows_any": ("surf_tpu_torch/csrc/inst_rows.cu",
+                      "surf_tpu/accel/pallas_instanced.py:260"),
+}
 
 
 def main() -> int:
     dev = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     phase_build()
     kernels = phase_kernel(dev)
+    kernels.update(phase_inst_kernel(dev))
     launches = phase_bench(dev)
+    launches.update(phase_twolevelp_bench(dev))
+    for name, err in phase_capacity(dev).items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     phase_parity(dev)
+    phase_twolevelp_parity(dev)
+    say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():
+        source, replaces = KERNELS[name]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "surf_tpu_torch/csrc/leaf_rows.cu",
-            "replaces": "surf_tpu/accel/pallas_wide.py:1287",
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

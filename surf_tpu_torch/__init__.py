@@ -6,14 +6,15 @@ Mirrors ``surf_tpu``'s module names so each counterpart is easy to find:
                   seeds, 3-vector math, rejection samplers, host transforms.
 - ``scene``     — the NumPy scene-description layer (meshes, materials,
                   instances, built-in scenes, camera) and the compiler that
-                  flattens a scene into a ``TorchScene`` on a given device.
-- ``accel``     — the ``bitsru8`` traversal (row-box bits, hierarchical
-                  AND, exact row lists) and the hand-written Hopper
-                  leaf-row intersection kernel (``csrc/leaf_rows.cu``).
+                  builds a flattened ``TorchScene`` or a pure two-level
+                  ``PureScene`` on a given device.
+- ``accel``     — the SAH builder and leaf-table packer, the ``bitsru8``
+                  traversal and the pure two-level instanced traversal,
+                  with their hand-written Hopper kernels
+                  (``csrc/leaf_rows.cu``, ``csrc/inst_rows.cu``).
 - ``wavefront`` — the wavefront integrator: raygen, extend, shade, NEE,
                   compaction and the width ladder, driven from the host.
 
-The package imports ``torch`` and ``numpy`` and never ``jax``; the only
-modules it borrows from ``surf_tpu`` are the JAX-free SAH builder and
-leaf-table packer (``surf_tpu.accel.builder`` / ``surf_tpu.accel.wide``).
+The package imports ``torch``, ``numpy`` and the standard library, and
+nothing of ``surf_tpu`` or ``jax``.
 """

@@ -4,8 +4,10 @@ The library has a plain C interface and is loaded with ctypes; it is
 compiled with nvcc for ``sm_90a`` into ``surf_tpu_torch/_build/`` (listed
 in ``.gitignore``), under a name that carries a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one is reused.  The
-sources are the only input.  ``--fmad=false`` keeps every multiply and add
-separately rounded, as the plain PyTorch versions compute them.
+sources are the only input.  Each source is compiled by its own nvcc
+process, all started together, and the objects are then linked into the
+library.  ``--fmad=false`` keeps every multiply and add separately rounded,
+as the plain PyTorch versions compute them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB: ctypes.CDLL | None = None
@@ -61,13 +63,25 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    tag = BUILD_DIR / f"{so.stem}.{os.getpid()}"
+    nvcc, srcs = _nvcc(), _sources()
+    objs = [Path(f"{tag}.{src.stem}.o") for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    log = "".join(f"== {src.name}\n{p.communicate()[0]}" for src, p in zip(srcs, procs))
+    tmp = Path(f"{tag}.tmp.so")
+    ok = all(p.returncode == 0 for p in procs)
+    if ok:
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += f"== link\n{link.stdout}"
+        ok = link.returncode == 0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text(log)
+    if not ok:
+        raise RuntimeError("nvcc failed:\n" + log)
     os.replace(tmp, so)
     return so
 
@@ -84,7 +98,14 @@ def library() -> ctypes.CDLL:
             # block_rays, t, r, u, v, stream
             fn.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p]
             fn.restype = i
-        lib.leaf_rows_threads_per_block.argtypes = []
-        lib.leaf_rows_threads_per_block.restype = i
+        for name in ("inst_rows_closest", "inst_rows_any"):
+            fn = getattr(lib, name)
+            # table, lists, cap_tot, counts, n_inst, segs, inv, rays,
+            # n_rays, block_rays, t, r, u, v, inst, stream
+            fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
+            fn.restype = i
+        for name in ("leaf_rows_threads_per_block", "inst_rows_threads_per_block"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         _LIB = lib
     return _LIB

@@ -30,11 +30,20 @@ from typing import NamedTuple
 import torch
 
 from ..core.vecmath import F32_FAR_AWAY
-from ..scene.compile import LeafTrace
 from .leaf_rows import leaf_rows
 
 BITS_CAP_ROWS = 1536   # default list capacity, as pallas_wide.BITS_CAP_ROWS
 PHASE1_ELEMS = 1 << 26
+
+
+class LeafTrace(NamedTuple):
+    """The dense leaf table the bits traversal reads (accel/wide.py)."""
+
+    ltab: torch.Tensor    # [E, 128] f32: 8 triangles per row, 16 lanes each
+    box_lo: torch.Tensor  # [3, EB] f32: leaf-row boxes, then 8-ary levels
+    box_hi: torch.Tensor  # [3, EB] f32
+    anc: torch.Tensor     # [L, MAXD] int32: each leaf row's box chain
+    inert_row: int        # an all-zero row (ltab.shape[0] - 1): list padding
 
 
 class Hit(NamedTuple):

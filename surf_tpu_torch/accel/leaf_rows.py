@@ -101,6 +101,55 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
     return t, r, u, v
 
 
+def mt_chunk(rows: torch.Tensor, live: torch.Tensor, o, d, best,
+             any_hit: bool):
+    """One chunk of rows of the plain versions: Möller–Trumbore of every
+    ray against every record of the chunk, and the strictly-closer update.
+
+    rows [G, K, 128] with live [G, K] (dead rows never hit); o and d are
+    (x, y, z) triples of [G, R, 1]; best = (t, r, u, v), each [G, R].
+    Within the chunk the first record (in row order) with the least t
+    below the running best wins, which is the winner of the kernels'
+    one-by-one strictly-closer updates.  Returns the new best and the
+    [G, R] mask of rays whose best changed (with ``any_hit`` only t moves)."""
+    G, K = rows.shape[:2]
+    rec = rows.reshape(G, 1, K * TRIS, REC)
+    live = live.repeat_interleave(TRIS, dim=1)[:, None, :]
+    ox, oy, oz = o
+    dx, dy, dz = d
+    best_t, best_r, best_u, best_v = best
+    v0x, v0y, v0z = rec[..., 0], rec[..., 1], rec[..., 2]
+    e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
+    e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
+    hx = dy * e2z - dz * e2y
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = torch.ones_like(a) / a
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    hit = ((a.abs() >= EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+           & (u + v <= 1.0) & (t >= EPS) & (t < best_t[..., None]) & live)
+    t_min, j = torch.where(hit, t, torch.inf).min(dim=2)
+    upd = hit.any(dim=2)
+    best_t = torch.where(upd, t_min, best_t)
+    if not any_hit:
+        j = j[..., None]
+        sid = rows.view(torch.int32).reshape(G, 1, K * TRIS, REC)[..., 9]
+        sid = sid.expand(G, t.shape[1], K * TRIS).gather(2, j)[..., 0]
+        best_r = torch.where(upd, sid, best_r)
+        best_u = torch.where(upd, u.gather(2, j)[..., 0], best_u)
+        best_v = torch.where(upd, v.gather(2, j)[..., 0], best_v)
+    return (best_t, best_r, best_u, best_v), upd
+
+
 def leaf_rows_plain(table: torch.Tensor, lists: torch.Tensor,
                     n_rows: torch.Tensor, rays: torch.Tensor, block_rays: int,
                     any_hit: bool = False):
@@ -108,9 +157,7 @@ def leaf_rows_plain(table: torch.Tensor, lists: torch.Tensor,
     for bit where both round each op alike).
 
     Rows are taken a chunk of list positions at a time (PLAIN_PAIRS bounds
-    the pairs per op): within a chunk the first triangle (in list order)
-    with the least t below the running best wins, which is exactly the
-    winner of the kernel's one-by-one strictly-closer updates.  The loop
+    the pairs per op, ``mt_chunk`` picks each chunk's winner).  The loop
     bound is read on the host."""
     g = lists.shape[0]
     R = block_rays
@@ -126,47 +173,15 @@ def leaf_rows_plain(table: torch.Tensor, lists: torch.Tensor,
     pos = torch.arange(width, device=dev, dtype=torch.int32)
     ids = torch.where(sweep[:, None], pos[None, :], lists[:, :width]).long()
 
-    best_t = tm.clone()
-    best_r = torch.full((g, R), -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((g, R), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((g, R), dtype=torch.float32, device=dev)
-    ox, oy, oz, dx, dy, dz = o
+    best = (tm.clone(), torch.full((g, R), -1, dtype=torch.int32, device=dev),
+            torch.zeros((g, R), dtype=torch.float32, device=dev),
+            torch.zeros((g, R), dtype=torch.float32, device=dev))
     chunk_rows = max(1, PLAIN_PAIRS // (max(g, 1) * R * TRIS))
     for k0 in range(0, width, chunk_rows):
         rows = table[ids[:, k0:k0 + chunk_rows]]           # [g, K, 128]
-        K = rows.shape[1]
-        rec = rows.reshape(g, 1, K * TRIS, REC)            # [g, 1, K*8, 16]
-        live = (pos[k0:k0 + K][None, :] < count[:, None])  # [g, K]
-        live = live.repeat_interleave(TRIS, dim=1)[:, None, :]
-        v0x, v0y, v0z = rec[..., 0], rec[..., 1], rec[..., 2]
-        e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
-        e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
-        hx = dy * e2z - dz * e2y
-        hy = dz * e2x - dx * e2z
-        hz = dx * e2y - dy * e2x
-        a = e1x * hx + e1y * hy + e1z * hz
-        f = torch.ones_like(a) / a
-        sx = ox - v0x
-        sy = oy - v0y
-        sz = oz - v0z
-        u = f * (sx * hx + sy * hy + sz * hz)
-        qx = sy * e1z - sz * e1y
-        qy = sz * e1x - sx * e1z
-        qz = sx * e1y - sy * e1x
-        v = f * (dx * qx + dy * qy + dz * qz)
-        t = f * (e2x * qx + e2y * qy + e2z * qz)
-        hit = ((a.abs() >= EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-               & (u + v <= 1.0) & (t >= EPS) & (t < best_t[..., None]) & live)
-        t_min, j = torch.where(hit, t, torch.inf).min(dim=2)
-        upd = hit.any(dim=2)
-        best_t = torch.where(upd, t_min, best_t)
-        if not any_hit:
-            j = j[..., None]
-            sid = rows.view(torch.int32).reshape(g, 1, K * TRIS, REC)[..., 9]
-            sid = sid.expand(g, R, K * TRIS).gather(2, j)[..., 0]
-            best_r = torch.where(upd, sid, best_r)
-            best_u = torch.where(upd, u.gather(2, j)[..., 0], best_u)
-            best_v = torch.where(upd, v.gather(2, j)[..., 0], best_v)
+        live = pos[k0:k0 + rows.shape[1]][None, :] < count[:, None]
+        best, _ = mt_chunk(rows, live, o[0:3], o[3:6], best, any_hit)
+    best_t, best_r, best_u, best_v = best
     if any_hit:
         best_r = torch.where(best_t < tm, 0, -1).to(torch.int32)
     return (best_t.reshape(-1), best_r.reshape(-1), best_u.reshape(-1),

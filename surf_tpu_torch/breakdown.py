@@ -1,0 +1,159 @@
+"""Where a frame's time goes: one spp of a bench-knob render under
+``torch.profiler``, with the render's layers annotated.
+
+    python -m surf_tpu_torch.breakdown --scene stress --algo twolevelp
+    python -m surf_tpu_torch.breakdown --scene indoor --algo bitsru8
+
+Runs on the card at 512x512 with the bench knobs (the stress scene with
+32 instances, as ``chip_smoke.py`` renders it): one warm-up spp, 4
+unprofiled spp timed on the host clock, then one spp profiled.  Prints
+the kernel count, the total kernel
+time, the device's busy share of the profiled spp's wall time (the union of
+the kernel intervals over the wall time) and, per layer, the device time of
+the kernels launched inside it and inside no layer nested in it ("shading"
+is what no layer claims, "unattributed" device work the profiler links to
+no CPU op).  The layers are annotated by wrapping the port's
+functions for the duration of the run; the port's code carries no
+annotations.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import functools
+import time
+from unittest import mock
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from .accel import bits, instanced
+from .core import sampling
+from .scene import builtin
+from .scene.camera import CameraParams
+from .scene.compile import compile_scene
+from .wavefront import integrator as wi
+
+SIZE = 512        # image width and height
+STRESS_N = 32     # instanced copies in the stress scene
+TIMED_SPP = 4     # unprofiled spp timed on the host clock
+# (module, attribute, layer): the functions whose calls form each layer.
+# A kernel counts toward the innermost layer it was launched in.  The
+# hand-written kernels are launched through ctypes, outside any torch op,
+# so the profiler links them to no CPU event: they count by name.
+OWN_KERNELS = {"leaf_rows_kernel": "leaf_rows kernel",
+               "inst_rows_kernel": "inst_rows kernel"}
+LAYERS = (
+    (wi, "ray_generation", "raygen"),
+    (wi, "compact_paths", "compaction"),
+    (bits, "prepare", "bitsru8 phases 1/1.5"),
+    (bits, "leaf_rows", "leaf_rows kernel"),
+    (instanced, "prepare", "twolevelp phases 0/1"),
+    (instanced, "inst_rows", "inst_rows kernel"),
+    (wi, "_next_event", "NEE (not its traversal)"),
+    (sampling, "cosine_hemisphere", "cosine sampling"),
+)
+
+
+def _annotated(fn, label):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=("indoor", "stress"), default="stress")
+    ap.add_argument("--algo", choices=wi.ALGOS, default="twolevelp")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("breakdown: no CUDA device")
+    dev = torch.device("cuda", 0)
+    w = h = SIZE
+    if args.scene == "stress":
+        scene = builtin.make_instanced_stress_scene(STRESS_N)
+        cam = builtin.make_stress_camera(w, h, STRESS_N)
+    else:
+        scene = builtin.make_indoor_scene()
+        cam = builtin.make_indoor_camera(w, h)
+    ts = compile_scene(scene, dev, two_level="pure" if args.algo == "twolevelp" else False)
+    cfg = wi.RenderConfig.for_scene(ts, w, h, 1, use_defocus=True)._replace(**wi.BENCH_KNOBS)
+    cp = CameraParams.from_camera(cam, dev)
+
+    seed = wi.initial_seeds(cfg, 16, dev)
+    _, seed = wi.render_frame_seeded(ts, cfg, cp, seed)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED_SPP):
+        t0 = time.perf_counter()
+        _, seed = wi.render_frame_seeded(ts, cfg, cp, seed)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, label in LAYERS:
+            stack.enter_context(mock.patch.object(
+                mod, name, _annotated(getattr(mod, name), label)))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            wi.render_frame_seeded(ts, cfg, cp, seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+
+    labels = {label for _, _, label in LAYERS}
+    layer_us = dict.fromkeys([label for _, _, label in LAYERS] + ["shading"], 0.0)
+    calls = dict.fromkeys(layer_us, 0)
+    n_kernels, k_us, spans = 0, 0.0, []
+
+    def own(name):
+        return next((v for k, v in OWN_KERNELS.items() if k in name), None)
+
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name in labels:  # the device copy of an annotation
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            n_kernels += 1
+            k_us += e.time_range.elapsed_us()
+            if own(e.name):
+                layer_us[own(e.name)] += e.time_range.elapsed_us()
+            continue
+        p = e
+        while p is not None and p.name not in labels:
+            p = p.cpu_parent
+        if p is e:
+            calls[e.name] += 1
+        for k in e.kernels:  # a kernel attaches to the op that launched it
+            if not own(k.name):
+                layer_us["shading" if p is None else p.name] += k.duration
+    layer_us["unattributed"] = k_us - sum(layer_us.values())
+    calls["unattributed"] = 0
+    busy = _union_us(spans)
+    print(f"scene {args.scene} ({len(scene.instances)} instances), algo {args.algo}, "
+          f"{w}x{h}, bench knobs, device {torch.cuda.get_device_name(dev)}")
+    print(f"unprofiled spp wall (s): {[round(x, 4) for x in walls]}")
+    print(f"profiled spp: wall {wall:.4f} s, {n_kernels} kernels, kernel time "
+          f"{k_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+          f"({busy / 1e6 / wall:.1%} of wall)")
+    for label, us in layer_us.items():
+        print(f"  {label:26s} calls {calls[label]:5d}  device {us / 1e3:9.2f} ms"
+              f"  ({us / max(k_us, 1):.1%} of kernel time)")
+
+
+if __name__ == "__main__":
+    main()

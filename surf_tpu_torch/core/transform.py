@@ -1,8 +1,6 @@
 """Host-side 4x4 affine transforms with glm semantics (column vectors, M @ v).
 
-Carried over unchanged from ``surf_tpu.core.transform``: that package's
-``core/__init__`` imports its JAX RNG, so the NumPy module cannot be
-imported without JAX.
+The port's own copy of ``surf_tpu.core.transform`` (NumPy only).
 
 Replaces the reference's use of glm (surf_math.h:91: ``Mat4 = glm::mat4``)
 for instance transforms (sources/main.cpp:173-341).  Stored as float32 NumPy
@@ -54,6 +52,10 @@ def rotate(m: np.ndarray, angle_rad: float, axis) -> np.ndarray:
         dtype=np.float32,
     )
     return (m @ rm).astype(np.float32)
+
+
+def inverse(m: np.ndarray) -> np.ndarray:
+    return np.linalg.inv(m.astype(np.float64)).astype(np.float32)
 
 
 def apply_point(m: np.ndarray, p: np.ndarray) -> np.ndarray:

@@ -1,6 +1,6 @@
 """Built-in scenes (carried over from ``surf_tpu.scene.builtin``): the
-indoor test scene of the reference entry point (main.cpp:141-348) and the
-diffuse box scene.
+indoor test scene of the reference entry point (main.cpp:141-348), the
+diffuse box scene and the instanced stress scene, with their cameras.
 
 Mesh assets come from ``SURF_ASSETS`` or ``<repo>/assets`` when present;
 procedural stand-ins (cube / icosphere / flattened icosphere lens) keep the
@@ -163,6 +163,73 @@ def make_indoor_camera(width: int, height: int) -> Camera:
     return Camera(
         position=[0.0, 0.0, -7.0],
         target=[0.0, 0.0, 0.0],
+        screen_width=width,
+        screen_height=height,
+        fov_y=70.0,
+        focal_length=7.0,
+        defocus_angle=0.5,
+    )
+
+
+def make_instanced_stress_scene(n_instances: int = 200,
+                                mesh_name: str = "susanne.obj") -> Scene:
+    """High-instance-count scene for the two-level traversal: n copies of
+    ONE shared mesh on a jittered grid over a floor plane, one emissive
+    cube.  A flattened compile stores n * mesh_tris world triangles;
+    ``compile_scene(..., two_level="pure")`` stores the mesh once."""
+    mesh = load_mesh_or_fallback(mesh_name)
+    plane = load_mesh_or_fallback("plane.obj")
+    cube = load_mesh_or_fallback("cube.obj")
+    m = make_materials()
+    I = tf.identity()
+    side = max(1, int(np.ceil(np.sqrt(n_instances))))
+    insts = [Instance(plane, m["floor"],
+                      tf.scale(tf.translate(I, [0.0, -1.0, 0.0]),
+                               [4.0 * side, 1.0, 4.0 * side]))]
+    rng = np.random.default_rng(7)
+    mats = [m["diffuse"], m["specular"], m["wall_green"]]
+    for k in range(n_instances):
+        gx, gz = k % side, k // side
+        pos = [3.0 * (gx - (side - 1) / 2) + float(rng.uniform(-.4, .4)),
+               float(rng.uniform(0.0, 1.5)),
+               3.0 * (gz - (side - 1) / 2) + float(rng.uniform(-.4, .4))]
+        s = float(rng.uniform(0.5, 1.1))
+        xf = tf.scale(tf.rotate(tf.translate(I, pos),
+                                float(rng.uniform(0, 2 * np.pi)),
+                                [0.0, 1.0, 0.0]), [s, s, s])
+        insts.append(Instance(mesh, mats[k % len(mats)], xf))
+    insts.append(Instance(cube, m["soft_light"],
+                          tf.scale(tf.translate(I, [0.0, 6.0, 0.0]),
+                                   [2.0, 0.25, 2.0])))
+    background = SceneBackground(
+        type=BG_GRADIENT, gradient_a=[0.8, 0.8, 0.8],
+        gradient_b=[0.1, 0.4, 0.6])
+    return Scene(background, insts)
+
+
+def make_stress_camera(width: int, height: int,
+                       n_instances: int = 200) -> Camera:
+    """Camera overlooking the stress grid (most primary rays hit geometry)."""
+    side = max(1, int(np.ceil(np.sqrt(n_instances))))
+    d = 2.2 * side
+    return Camera(
+        position=[0.0, 0.55 * d, -1.1 * d],
+        target=[0.0, 0.0, 0.0],
+        screen_width=width,
+        screen_height=height,
+        fov_y=70.0,
+        focal_length=d,
+        defocus_angle=0.3,
+    )
+
+
+def make_box_camera(width: int, height: int) -> Camera:
+    """Camera framed on the diffuse-box scene's own geometry (cube at the
+    origin, 20x20 floor at y=-1), pitched down from above so nearly every
+    primary ray hits a surface."""
+    return Camera(
+        position=[0.0, 3.0, -6.0],
+        target=[0.0, -1.0, 1.0],
         screen_width=width,
         screen_height=height,
         fov_y=70.0,

@@ -1,15 +1,12 @@
 """Scene instances: mesh + material + 4x4 transform.
 
-Mirrors the reference Instance (bvh.cpp:467-594) as far as the flattened
-render needs it: the world-space triangles and the total *transformed*
-surface area used as the light PDF normalizer.  Smooth normals are
-transformed by the plain matrix (not the inverse transpose) to match
-bvh.cpp:515-522.
+Mirrors the reference Instance (bvh.cpp:467-594): cached inverse
+transform, world-space AABB from the 8 transformed corners of the mesh
+bounds, and the total *transformed* surface area used as the light PDF
+normalizer.  Smooth normals are transformed by the plain matrix (not the
+inverse transpose) to match bvh.cpp:515-522.
 
-Carried over from ``surf_tpu.scene.instance`` (NumPy only, without the
-inverse transform and world bounds that only the TLAS reads): that package's
-``scene/__init__`` imports its JAX camera, so this module cannot be
-imported from there without JAX.
+The port's own copy of ``surf_tpu.scene.instance`` (NumPy only).
 """
 
 from __future__ import annotations
@@ -21,11 +18,33 @@ from .material import Material
 from .mesh import Mesh
 
 
+def world_bounds(transform: np.ndarray, v0, v1, v2):
+    """8-corner world AABB (bvh.cpp:554-575): the mesh's object-space
+    bounds, its 8 corners transformed, and their (min, max)."""
+    pts = np.concatenate([v0, v1, v2])
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    corners = np.array(
+        [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1]) for z in (lo[2], hi[2])],
+        np.float32,
+    )
+    world = tf.apply_point(transform, corners)
+    return world.min(axis=0).astype(np.float32), world.max(axis=0).astype(np.float32)
+
+
 class Instance:
     def __init__(self, mesh: Mesh, material: Material, transform: np.ndarray):
         self.mesh = mesh
         self.material = material
-        self.transform = np.asarray(transform, np.float32)
+        self.set_transform(np.asarray(transform, np.float32))
+
+    def set_transform(self, transform: np.ndarray) -> None:
+        """setTransform (bvh.cpp:524-531): cache inverse, world bounds, area.
+        Bumps ``version`` on every call."""
+        self.transform = transform.astype(np.float32)
+        self.inv_transform = tf.inverse(self.transform)
+        self.version = getattr(self, "version", 0) + 1
+        self.bounds_min, self.bounds_max = world_bounds(
+            self.transform, self.mesh.v0, self.mesh.v1, self.mesh.v2)
         self._calculate_mesh_area()
 
     def _calculate_mesh_area(self) -> None:

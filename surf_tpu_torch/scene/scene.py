@@ -1,6 +1,6 @@
 """Scene graph: background + instances + light list (the NumPy description
 layer of ``surf_tpu.scene.scene``, carried over without the TLAS and the
-animation, which the flattened render does not read).
+animation, which the ported render paths do not read).
 
 Emissive instances are collected into a light list at construction
 (scene.cpp:23-33); the background is solid or a vertical gradient.

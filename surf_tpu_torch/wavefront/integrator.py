@@ -1,5 +1,8 @@
 """The wavefront path-tracing integrator (port of
-``surf_tpu.wavefront.integrator``, flattened-scene forward path).
+``surf_tpu.wavefront.integrator``, forward path): ``algo="bitsru8"`` over a
+flattened ``TorchScene`` or ``algo="twolevelp"`` over a pure two-level
+``PureScene``, whose shading re-derives world geometry per lane from the
+shared object-space meshes and the hit instance's forward transform.
 
 Every pixel owns one path per sample in a dense SoA lane state; each wave
 runs extend (closest-hit traversal), shade (lobe select, Schlick
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from ..accel.bits import Hit, traverse_bits
+from ..accel.instanced import traverse_instanced
 from ..core import rng, sampling
 from ..core.vecmath import (
     F32_EPSILON,
@@ -35,14 +39,29 @@ from ..core.vecmath import (
     reflect,
 )
 from ..scene.camera import CameraParams, ViewPlane, view_plane
-from ..scene.compile import TorchScene
+from ..scene.compile import PureScene, TorchScene
+
+ALGOS = ("bitsru8", "twolevelp")
+# bench.py's render knobs (wave cap, packet size, compaction, width ladder,
+# lane order), applied with RenderConfig._replace(**BENCH_KNOBS).
+BENCH_KNOBS = dict(wave_limit=32, block_rays=2048, compact=True,
+                   compact_every=16, ladder=6, ladder_shrink=2,
+                   pixel_order="morton")
+
+
+def algo_of(scene: TorchScene | PureScene) -> str:
+    """The traversal a scene is rendered with: "twolevelp" for a PureScene,
+    "bitsru8" for a flattened TorchScene."""
+    return "twolevelp" if isinstance(scene, PureScene) else "bitsru8"
 
 
 class RenderConfig(NamedTuple):
     """Render configuration: the fields of ``surf_tpu``'s RenderConfig that
-    the flattened bitsru8 forward path reads, with the same names and
-    defaults.  The wave loop always runs until every path has terminated
-    or ``wave_limit`` waves (JAX's ``max_bounces=None`` mode)."""
+    the forward path reads, with the same names and defaults.  ``algo``
+    names the traversal, which the scene's type decides (``algo_of``):
+    ``for_scene`` sets it, and ``render_frame_seeded`` raises if it names
+    another.  The wave loop always runs until every path has terminated or
+    ``wave_limit`` waves (JAX's ``max_bounces=None`` mode)."""
 
     width: int
     height: int
@@ -56,12 +75,14 @@ class RenderConfig(NamedTuple):
     ladder: int = 0              # width-ladder rungs (0 = off)
     ladder_shrink: int = 4       # width divisor per rung
     pixel_order: str = "native"  # lane -> pixel map: "native" or "morton"
+    algo: str = "bitsru8"        # traversal: "bitsru8" or "twolevelp"
 
     @classmethod
-    def for_scene(cls, scene: TorchScene, width: int, height: int, spp: int,
-                  use_defocus: bool) -> "RenderConfig":
+    def for_scene(cls, scene: TorchScene | PureScene, width: int, height: int,
+                  spp: int, use_defocus: bool) -> "RenderConfig":
         return cls(width=width, height=height, spp=spp,
-                   use_defocus=use_defocus, num_lights=scene.num_lights)
+                   use_defocus=use_defocus, num_lights=scene.num_lights,
+                   algo=algo_of(scene))
 
 
 class PathState(NamedTuple):
@@ -127,10 +148,37 @@ def ray_generation(cfg: RenderConfig, vp: ViewPlane, seed: torch.Tensor,
 # Stages 2-4: extend / shade / connect in one masked bounce step
 # --------------------------------------------------------------------------
 
-def _traverse(scene: TorchScene, cfg: RenderConfig, origin, direction, t_max,
-              active, any_hit: bool) -> Hit:
-    return traverse_bits(scene.trace, origin, direction, t_max, active,
-                         any_hit=any_hit, block_rays=cfg.block_rays)
+def _traverse(scene: TorchScene | PureScene, cfg: RenderConfig, origin,
+              direction, t_max, active, any_hit: bool):
+    """Closest-hit (or any-hit) traversal of the scene.  Returns (Hit,
+    inst): for a PureScene the hit's prim is the object-space triangle
+    (``inst_obj_base[inst] + inst_slot_perm[base + slot]``) and ``inst``
+    the hit instance (-1 on a miss); for a TorchScene prim is the leaf
+    slot and ``inst`` is None."""
+    if not isinstance(scene, PureScene):
+        return traverse_bits(scene.trace, origin, direction, t_max, active,
+                             any_hit=any_hit, block_rays=cfg.block_rays), None
+    h = traverse_instanced(scene.inst, origin, direction, t_max, active,
+                           any_hit=any_hit, block_rays=cfg.block_rays)
+    found = h.prim >= 0
+    base = scene.inst_obj_base[h.inst.clamp(min=0)]
+    g = base + scene.inst_slot_perm[base + h.prim.clamp(min=0)]
+    return (Hit(prim=torch.where(found, g, -1), t=h.t, u=h.u, v=h.v),
+            torch.where(found, h.inst, -1))
+
+
+def _xf_point(a, p):
+    """Affine 3x4 rows a [N, 12] applied to points p [N, 3], each component
+    ((a0*x + a1*y) + a2*z) + a3 as in JAX."""
+    return torch.stack([a[:, 4 * k] * p[:, 0] + a[:, 4 * k + 1] * p[:, 1]
+                        + a[:, 4 * k + 2] * p[:, 2] + a[:, 4 * k + 3]
+                        for k in range(3)], dim=-1)
+
+
+def _xf_vector(a, d):
+    """The linear part of a [N, 12] applied to vectors d [N, 3]."""
+    return torch.stack([a[:, 4 * k] * d[:, 0] + a[:, 4 * k + 1] * d[:, 1]
+                        + a[:, 4 * k + 2] * d[:, 2] for k in range(3)], dim=-1)
 
 
 def _sample_background(scene: TorchScene, direction):
@@ -152,19 +200,32 @@ def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState
     dev = s.origin.device
 
     # ---- EXTEND: closest hit ---------------------------------------------
-    hit = _traverse(scene, cfg, s.origin, s.direction,
-                    torch.full((n,), F32_FAR_AWAY, device=dev), s.alive,
-                    any_hit=False)
+    hit, hit_inst = _traverse(scene, cfg, s.origin, s.direction,
+                              torch.full((n,), F32_FAR_AWAY, device=dev),
+                              s.alive, any_hit=False)
     found = hit.prim >= 0
-    slot = hit.prim.clamp(min=0)
-    g = scene.perm[slot]  # original-order triangle id
-    inst = scene.tri_inst[slot]
-    v0 = scene.samp_v0[g]
-    v1 = scene.samp_v1[g]
-    v2 = scene.samp_v2[g]
-    n0_ = scene.samp_n0[g]
-    n1_ = scene.samp_n1[g]
-    n2_ = scene.samp_n2[g]
+    if isinstance(scene, PureScene):
+        # twolevelp: world geometry from the shared object-space mesh and
+        # the hit instance's forward transform (bvh.cpp:481-594)
+        g = hit.prim.clamp(min=0)  # object-space triangle id
+        inst = hit_inst.clamp(min=0)
+        a = scene.inst_fwd[inst]
+        v0 = _xf_point(a, scene.obj_v0[g])
+        v1 = _xf_point(a, scene.obj_v1[g])
+        v2 = _xf_point(a, scene.obj_v2[g])
+        n0_ = _xf_vector(a, scene.obj_n0[g])
+        n1_ = _xf_vector(a, scene.obj_n1[g])
+        n2_ = _xf_vector(a, scene.obj_n2[g])
+    else:
+        slot = hit.prim.clamp(min=0)
+        g = scene.perm[slot]  # original-order triangle id
+        inst = scene.tri_inst[slot]
+        v0 = scene.samp_v0[g]
+        v1 = scene.samp_v1[g]
+        v2 = scene.samp_v2[g]
+        n0_ = scene.samp_n0[g]
+        n1_ = scene.samp_n1[g]
+        n2_ = scene.samp_n2[g]
     t, u, v = _reintersect(s.origin, s.direction, v0, v1, v2)
 
     miss = s.alive & ~found
@@ -319,7 +380,10 @@ def _next_event(scene: TorchScene, cfg: RenderConfig, seed, m_diff, I, N,
                 brdf, transmission, energy):
     """NEE: sample one light instance and a point on it, trace an any-hit
     shadow ray (ray_shade.comp:125-174 + ray_connect.comp:178-212).  RNG
-    order per diffuse lane: light pick, u, v, triangle id."""
+    order per diffuse lane: light pick, u, v, triangle id.  For
+    "twolevelp" the point and normal are sampled on the object-space mesh
+    and taken to world space by the light instance's forward transform
+    (Instance::samplePoint, bvh.cpp:533-552)."""
     seed, li_raw = rng.next_u32_masked(seed, m_diff)
     light_inst = scene.light_inst[li_raw % cfg.num_lights]
     seed, su = rng.next_f32_masked(seed, m_diff)
@@ -330,12 +394,18 @@ def _next_event(scene: TorchScene, cfg: RenderConfig, seed, m_diff, I, N,
     tri_idx = scene.inst_tri_offset[light_inst] + tri_local
 
     w = 1.0 - su - sv
-    p_pos = (su[:, None] * scene.samp_v0[tri_idx]
-             + sv[:, None] * scene.samp_v2[tri_idx]
-             + w[:, None] * scene.samp_v1[tri_idx])
-    p_raw = (su[:, None] * scene.samp_n0[tri_idx]
-             + sv[:, None] * scene.samp_n2[tri_idx]
-             + w[:, None] * scene.samp_n1[tri_idx])
+    pure = isinstance(scene, PureScene)
+    src = "obj" if pure else "samp"
+    lv0, lv1, lv2, ln0, ln1, ln2 = (getattr(scene, f"{src}_{k}") for k in
+                                    ("v0", "v1", "v2", "n0", "n1", "n2"))
+    p_pos = (su[:, None] * lv0[tri_idx] + sv[:, None] * lv2[tri_idx]
+             + w[:, None] * lv1[tri_idx])
+    p_raw = (su[:, None] * ln0[tri_idx] + sv[:, None] * ln2[tri_idx]
+             + w[:, None] * ln1[tri_idx])
+    if pure:
+        a = scene.inst_fwd[light_inst]
+        p_pos = _xf_point(a, p_pos)
+        p_raw = _xf_vector(a, p_raw)
     p_nrm = normalize(p_raw)
     IL = p_pos - I
     L = normalize(IL)
@@ -347,7 +417,7 @@ def _next_event(scene: TorchScene, cfg: RenderConfig, seed, m_diff, I, N,
     nee_ok = m_diff & (cos_o > 0) & (cos_li > 0)
 
     # CONNECT: any-hit occlusion
-    occ = _traverse(scene, cfg, SO, L, sr_depth, nee_ok, any_hit=True)
+    occ, _ = _traverse(scene, cfg, SO, L, sr_depth, nee_ok, any_hit=True)
     unoccluded = nee_ok & (occ.prim < 0)
 
     area = scene.inst_area[light_inst]
@@ -475,6 +545,9 @@ def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
     """Render cfg.spp samples continuing the per-pixel seed streams
     ``seed0``; returns (radiance sums [H, W, 3], final seeds).  Chunking a
     large spp budget into several calls gives the same image as one call."""
+    if cfg.algo != algo_of(scene):
+        raise ValueError(f"a {type(scene).__name__} renders with algo="
+                         f"{algo_of(scene)!r}, not {cfg.algo!r} (algos: {ALGOS})")
     vp = view_plane(cam, cfg.width, cfg.height)
     n = cfg.width * cfg.height
     dev = seed0.device

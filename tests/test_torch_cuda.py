@@ -1,11 +1,11 @@
-"""The hand-written leaf-row kernel against its plain PyTorch version, on
-the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere.
+"""The hand-written kernels (leaf rows, instanced leaf rows) against their
+plain PyTorch versions, on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere.
 They import no JAX, so they run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py configures JAX).  The kernel is built
-with --fmad=false, so it and the plain version round every op alike and
+(``--noconftest``: tests/conftest.py configures JAX).  The kernels are built
+with --fmad=false, so each and its plain version round every op alike and
 must agree bit for bit.
 """
 
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from surf_tpu_torch.accel import bits
+from surf_tpu_torch.accel import bits, inst_rows, instanced
 from surf_tpu_torch.accel.leaf_rows import (LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
 from surf_tpu_torch.scene import builtin
@@ -91,6 +91,59 @@ def test_render_through_kernel_matches_plain(indoor, cuda):
     assert LAUNCHES["leaf_rows_closest"] > 0 and LAUNCHES["leaf_rows_any"] > 0
     with mock.patch.object(bits, "leaf_rows", leaf_rows_plain):
         img_p, seed_p = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
+    assert torch.isfinite(img_k).all() and (img_k >= 0).all()
+    assert torch.equal(img_k, img_p)
+    assert torch.equal(seed_k, seed_p)
+
+
+@pytest.fixture(scope="module")
+def stress(cuda):
+    """The 32-instance stress scene, pure two-level, twice: default caps,
+    and inst_cap=8 so that lists overflow into per-instance sweeps."""
+    scene = builtin.make_instanced_stress_scene(32)
+    return {cap: compile_scene(scene, cuda, two_level="pure", inst_cap=cap)
+            for cap in (None, 8)}
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "sweep"])
+def test_inst_kernel_matches_plain_bit_exact(stress, cuda, mode):
+    ps = stress[8 if mode == "sweep" else None]
+    n = 3 * 2048
+    rng = np.random.default_rng(2)
+    o = torch.from_numpy(rng.uniform(-12, 12, (n, 3)).astype(np.float32)).to(cuda)
+    o[:, 1] = o[:, 1].abs()
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32)).to(cuda), dim=1)
+    act = torch.ones(n, dtype=torch.bool, device=cuda)
+    act[2048:4096] = False  # one all-dead packet
+    tmax = torch.full((n,), 4.0 if mode == "any_hit" else 1e30, device=cuda)
+    rays, lists, counts = instanced.prepare(ps.inst, o, d, tmax, act, 2048)
+    if mode == "sweep":
+        assert (counts < 0).any()
+    args = (ps.inst.ltab, lists, counts, ps.inst.segs, ps.inst.inv, rays, 2048,
+            mode == "any_hit")
+    got = inst_rows.inst_rows(*args)
+    want = inst_rows.inst_rows_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][2048:4096] == -1).all() and (got[1] >= 0).any()
+
+
+def test_twolevelp_render_through_kernel_matches_plain(stress, cuda):
+    """A 64x64 twolevelp render through the instanced kernel equals the same
+    render with the plain version swapped in, bit for bit."""
+    ps = stress[None]
+    cfg = RenderConfig.for_scene(ps, 64, 64, 1, use_defocus=True)._replace(
+        block_rays=2048, wave_limit=32, compact=True, compact_every=16,
+        ladder=6, ladder_shrink=2, pixel_order="morton")
+    cam = CameraParams.from_camera(builtin.make_stress_camera(64, 64, 32), cuda)
+    inst_rows.reset_launches()
+    img_k, seed_k = render_frame_seeded(ps, cfg, cam, initial_seeds(cfg, 0, cuda))
+    torch.cuda.synchronize()
+    assert all(k > 0 for k in inst_rows.LAUNCHES.values())
+    with mock.patch.object(instanced, "inst_rows", inst_rows.inst_rows_plain):
+        img_p, seed_p = render_frame_seeded(ps, cfg, cam, initial_seeds(cfg, 0, cuda))
     assert torch.isfinite(img_k).all() and (img_k >= 0).all()
     assert torch.equal(img_k, img_p)
     assert torch.equal(seed_k, seed_p)
