@@ -19,6 +19,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      rays and one bounce's rays, 2048-ray packets, one all-dead packet):
      closest, any-hit (t_max 16 primary, 4 bounce) and per-instance sweeps
      (inst_cap=8), with the same gates;
+  3c. stream walks: the skip and stack walk kernels against their plain
+     versions on the indoor scene's 8-wide stream, primary and one
+     bounce's rays at 512x512, 2048-ray packets, one all-dead packet,
+     closest and any-hit (t_max 8 primary, 4 bounce): t, record, u, v and
+     the per-packet visit counts: the counts must be equal, the hits
+     bit-identical expected (else the gate of phase 3); the bound counts
+     the slab and triangle tests of the live rays (active, and for any-hit
+     without a hit yet) at each row the plain version visits;
+  3d. binary walk: the binary-BVH walk kernel against its plain version on
+     the same rays in 1024-ray packets, the same way;
   4. bench: the bench config (bench.py: indoor scene, 512x512 @ 16 spp as
      16 one-spp calls, wave cap 32, 2048-ray packets, Morton lanes,
      compaction every 16 waves, ladder 6 / shrink 2) through the leaf-row
@@ -27,7 +37,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      512x512 @ 16 spp with the bench knobs through the instanced kernel:
      frame time, rays/s, energy, launches, peak memory and the scene's
      device bytes against the flattened compile of the same scene, whose
-     bitsru8 frame is timed beside it;
+     bitsru8 frame is timed beside it (the bytes of the tensors a render
+     reads: the flattened scene's stream and binary walk tables are counted
+     apart, since a bitsru8 render never reads them);
+  4d. walk benches: the bench config through algo="skip", algo="stack" and
+     use_wide=False: one 512x512 @ 16 spp frame each at phase 4's seeds
+     (total_samples 32), frame time, rays/s, energy, the walk's launch
+     counts (> 0), and its image within the parity gates of phase 4's
+     bitsru8 frame (under 1% of pixels off by more than 1e-3, energy
+     within 1%);
   4c. capacity: the 200-instance stress scene (202 instances, 256,014
      effective triangles), pure two-level, 256x256 @ 1 spp: a finite,
      non-negative image with positive energy, and the instanced kernel
@@ -39,7 +57,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   5b. twolevelp parity: the stress scene at 64x64 @ 2 spp through the
      instanced kernel and through its plain version (the same gates), and
      the diffuse box scene twolevelp against flattened bitsru8 (under 1%
-     of pixels off by more than 1e-3, energy within 0.5%).
+     of pixels off by more than 1e-3, energy within 0.5%);
+  5c. walk parity: the indoor scene at 64x64 @ 2 spp with the bench knobs
+     through each new walk's kernel and through its plain version on the
+     card (the gates of phase 5; bit equality expected).
 Then a JSON line of per-kernel results and, last, the device summary.
 Imports no JAX.
 """
@@ -55,7 +76,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-from surf_tpu_torch.accel import _build, bits, inst_rows, instanced, leaf_rows
+from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
+                                  leaf_rows, stream, stream_walk)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -72,6 +94,10 @@ BLOCK = BENCH_KNOBS["block_rays"]
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 MT_FLOPS = 48      # one ray x triangle Moller-Trumbore test (division as one)
+SLAB_FLOPS = 25    # one ray x box slab test (6 sub, 6 mul, 10 min/max, 3 compares)
+# The walks of phases 3c-5c, as RenderConfig fields.
+WALKS = {"skip": dict(algo="skip"), "stack": dict(algo="stack"),
+         "binary": dict(use_wide=False)}
 XF_FLOPS = 33      # one ray into one instance's object space (origin + dir)
 
 
@@ -129,6 +155,21 @@ def _time_ms(fn, reps: int, dev: torch.device) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _time_once(fn, dev: torch.device):
+    """(result, ms) of one call: CUDA events on the card, the host clock
+    elsewhere.  For the plain walks, which take seconds a call."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
 def _compare(got, want):
     """(bit-identical?, max |dt| over lanes where both hit, gate holds?):
     slot (and instance) equal except at coincident-t ties, t within rtol
@@ -151,6 +192,13 @@ def _bound(flops: float, nbytes: float) -> tuple[float, str]:
     peak and the bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _active_per_packet(act, g: int, blk: int) -> torch.Tensor:
+    """[g] int64: the active rays of each packet (pad rays are inactive)."""
+    a = torch.zeros(g * blk, dtype=torch.int64, device=act.device)
+    a[:act.shape[0]] = act
+    return a.view(g, blk).sum(1)
 
 
 def _nbytes(*xs) -> int:
@@ -207,7 +255,7 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
         p_ms = _time_ms(lambda: leaf_rows.leaf_rows_plain(*args), 3, dev)
         E = scene.trace.ltab.shape[0]
         rows = torch.where(n_rows < 0, E, n_rows)
-        tests = float(rows.sum()) * 8 * BLOCK
+        tests = float((rows * _active_per_packet(act, lists.shape[0], BLOCK)).sum()) * 8
         bound_ms, bound_by = _bound(tests * MT_FLOPS, _nbytes(*args[:4]) + 16 * rays.shape[1])
         sweeps = int((n_rows < 0).sum())
         say(f"[3 kernel] {label}: {'bit-identical' if bit else 'within gate'}, "
@@ -248,8 +296,10 @@ def phase_inst_kernel(dev: torch.device, w: int = W, h: int = H,
         p_ms = _time_ms(lambda: inst_rows.inst_rows_plain(*args), 2, dev)
         rows = torch.where(counts < 0, tr.segs[2][None, :], counts)
         pairs = int((counts != 0).sum())
-        tests = float(rows.sum()) * 8 * BLOCK
-        bound_ms, bound_by = _bound(tests * MT_FLOPS + pairs * BLOCK * XF_FLOPS,
+        live = _active_per_packet(act, lists.shape[0], BLOCK)[:, None]
+        tests = float((rows * live).sum()) * 8
+        xf = float(((counts != 0) * live).sum())  # active rays x listed instances
+        bound_ms, bound_by = _bound(tests * MT_FLOPS + xf * XF_FLOPS,
                                     _nbytes(*args[:6]) + 20 * rays.shape[1])
         say(f"[3b inst] {label}: {'bit-identical' if bit else 'within gate'}, "
             f"max |dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
@@ -260,6 +310,93 @@ def phase_inst_kernel(dev: torch.device, w: int = W, h: int = H,
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if label in ("bounce/closest", "bounce/any_hit"):
             rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def _walk_sets(primary, bounce, n, dev):
+    """The closest-hit and any-hit ray sets of ``_ray_sets`` (no sweeps)."""
+    return {k: v[:5] for k, v in _ray_sets(primary, bounce, n, dev, 8.0, 0).items()
+            if not k.endswith("sweep")}
+
+
+def _walk_record(out, name, label, got, want, k_ms, p_ms, work, nbytes, what):
+    """Checks a walk kernel's result against its plain version's (per-packet
+    counts equal, and every output bit-identical or the hits within phase
+    3's gate), prints one line and keeps the bounce sets' numbers for the
+    kernels line.  ``work`` is the plain version's [slab, triangle] tests
+    of live rays."""
+    if not torch.equal(got[4], want[4]):
+        raise AssertionError(f"{name} {label}: per-packet counts differ from the plain "
+                             f"version's")
+    bit = all(torch.equal(x, y) for x, y in zip(got, want))
+    _, err, gate = _compare(got[:4], want[:4])
+    if not (bit or gate):
+        raise AssertionError(f"{name} {label}: kernel disagrees with the plain version "
+                             f"(max |dt| {err})")
+    bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS, nbytes)
+    say(f"{what} {name} {label}: {'bit-identical' if bit else 'within gate'}, counts "
+        f"equal, max |dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; live tests: {work[0]} slab, {work[1]} triangle)")
+    rec = out.setdefault(name, {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    if label.startswith("bounce"):
+        rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_stream_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    primary, bounce = _first_wave(scene, cfg, cam, dev, w, h)
+    tr = scene.stream
+    say(f"[3c stream] indoor stream {tuple(tr.stream.shape)} rows (depth {tr.max_depth}), "
+        f"{w * h} rays in {w * h // BLOCK} packets of {BLOCK}")
+    out = {}
+    for algo in ("skip", "stack"):
+        for label, (o, d, act, tm, any_hit) in _walk_sets(primary, bounce, w * h, dev).items():
+            rays, a = stream.pack_rays(o, bits.nudge(d), tm, act, BLOCK)
+            args = (tr.stream, rays, a, BLOCK, algo, any_hit, tr.max_depth)
+            got = stream_walk.stream_walk(*args)
+            work = torch.zeros(a.shape[0] // BLOCK, 2, dtype=torch.int64, device=dev)
+            want, p_ms = _time_once(
+                lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
+            k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
+            visits = want[4].sum(0, dtype=torch.int64).tolist()  # rows, leaf rows
+            nbytes = _nbytes(tr.stream, rays, a, *got)
+            name = f"stream_walk_{algo}_{'any' if any_hit else 'closest'}"
+            _walk_record(out, name, label, got, want, k_ms, p_ms, work.sum(0).tolist(),
+                         nbytes, "[3c stream]")
+            g = want[4].shape[0]
+            say(f"[3c stream]   visits per packet: mean {visits[0] / g:.1f} rows "
+                f"({visits[1] / g:.1f} leaf), max {int(want[4][:, 0].max())}")
+    return out
+
+
+def phase_bvh_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    primary, bounce = _first_wave(scene, cfg, cam, dev, w, h)
+    tr = scene.binary
+    blk = bvh_walk.BLOCK
+    say(f"[3d binary] indoor node list {tr.n_nodes} nodes (with capacity padding), "
+        f"{tr.tris.shape[0] * 8} triangle records, {w * h // blk} packets of {blk}")
+    out = {}
+    for label, (o, d, act, tm, any_hit) in _walk_sets(primary, bounce, w * h, dev).items():
+        rays, a = stream.pack_rays(o, d, tm, act, blk)
+        args = (tr.nodes, tr.tris, tr.n_nodes, rays, a, any_hit)
+        got = bvh_walk.bvh_walk(*args)
+        work = torch.zeros(a.shape[0] // blk, 2, dtype=torch.int64, device=dev)
+        want, p_ms = _time_once(lambda: bvh_walk.bvh_walk_plain(*args, work=work), dev)
+        k_ms = _time_ms(lambda: bvh_walk.bvh_walk(*args), 10, dev)
+        counts = want[4].sum(0, dtype=torch.int64).tolist()  # nodes, triangles
+        nbytes = _nbytes(tr.nodes, tr.tris, rays, a, *got)
+        name = f"bvh_walk_{'any' if any_hit else 'closest'}"
+        _walk_record(out, name, label, got, want, k_ms, p_ms, work.sum(0).tolist(), nbytes,
+                     "[3d binary]")
+        g = want[4].shape[0]
+        say(f"[3d binary]   per packet: mean {counts[0] / g:.1f} nodes, "
+            f"{counts[1] / g:.1f} triangles")
     return out
 
 
@@ -296,7 +433,8 @@ def _timed_frames(scene, cfg, cam, dev, spp, frames):
 
 
 def _scene_bytes(scene) -> int:
-    """Device bytes of every tensor of a compiled scene (nested traces too)."""
+    """Device bytes of every tensor of a compiled scene (nested traces too;
+    a trace set to None counts nothing)."""
     total = 0
     for x in scene:
         if isinstance(x, torch.Tensor):
@@ -326,6 +464,51 @@ def phase_bench(dev: torch.device, w: int = W, h: int = H, spp: int = SPP) -> di
     say(f"[4 bench] energy {energy!r} (TPU run of surf_tpu: {TPU_ENERGY!r}, "
         f"rel diff {(energy - TPU_ENERGY) / TPU_ENERGY:+.4%}); launches {launches}; "
         f"peak memory {peak:.2f} GiB")
+    return launches, img
+
+
+def _pixel_gate(ref, img, what: str) -> str:
+    """tests/test_render_parity.py's gate: under 1% of pixels off by more
+    than 1e-3, energy within 1%."""
+    a, b = ref.cpu().numpy(), img.cpu().numpy()
+    off = float((np.abs(a - b).max(axis=2) > 1e-3).mean())
+    rel_e = abs(float(b.sum()) - float(a.sum())) / abs(float(a.sum()))
+    msg = (f"energy rel {rel_e:.3g}, pixels off by >1e-3 {off:.4%}, "
+           f"bit-identical {bool(np.array_equal(a, b))}")
+    if not (off < 0.01 and rel_e < 0.01):
+        raise AssertionError(f"{what}: {msg}")
+    return msg
+
+
+def phase_walk_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
+                     spp: int = SPP) -> dict:
+    """The bench config through each new walk: one frame at phase 4's
+    second frame's seeds (total_samples 2 * spp), held to its image."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    launches = {}
+    for walk, knobs in WALKS.items():
+        cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+            **BENCH_KNOBS, **knobs)
+        _render(scene, cfg, cam, dev, 0, 1)  # warm-up
+        _sync(dev)
+        counts = bvh_walk.LAUNCHES if walk == "binary" else stream_walk.LAUNCHES
+        mine = {k: 0 for k in counts if walk == "binary" or f"_{walk}_" in k}
+        stream_walk.reset_launches()
+        bvh_walk.reset_launches()
+        t0 = time.perf_counter()
+        img = _render(scene, cfg, cam, dev, 2 * spp, spp)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        mine = {k: counts[k] for k in mine}
+        launches.update(mine)
+        energy = _check_image(img, f"{walk} bench", spp)
+        for name, k in mine.items():
+            if k <= 0 and dev.type == "cuda":
+                raise AssertionError(f"{name} was never launched by the {walk} render")
+        say(f"[4d walks] {walk}: {w}x{h} @ {spp} spp, frame {dt:.3f} s, "
+            f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {mine}; "
+            f"vs bitsru8: {_pixel_gate(ref_img, img, f'{walk} bench frame')}")
     return launches
 
 
@@ -366,8 +549,10 @@ def phase_twolevelp_bench(dev: torch.device, w: int = W, h: int = H, spp: int = 
         f"(twolevelp rel diff {(energy - f_energy) / f_energy:+.4%})")
     say(f"[4b twolevelp] device bytes: pure {_scene_bytes(ps)} "
         f"(tables {_nbytes(ps.inst.ltab, ps.inst.box_lo, ps.inst.box_hi)}), "
-        f"flattened {_scene_bytes(fs)} "
-        f"(tables {_nbytes(fs.trace.ltab, fs.trace.box_lo, fs.trace.box_hi)})")
+        f"flattened, what bitsru8 reads {_scene_bytes(fs._replace(stream=None, binary=None))} "
+        f"(tables {_nbytes(fs.trace.ltab, fs.trace.box_lo, fs.trace.box_hi)}); the flattened "
+        f"scene's stream {_scene_bytes(fs.stream)} and binary walk tables "
+        f"{_scene_bytes(fs.binary)}, read by the walks only")
     return launches
 
 
@@ -461,6 +646,24 @@ def phase_twolevelp_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
         raise AssertionError("twolevelp render disagrees with the flattened render")
 
 
+def phase_walk_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    for walk, knobs in WALKS.items():
+        cfg = wi.RenderConfig.for_scene(scene, w, h, 2, use_defocus=True)._replace(
+            **BENCH_KNOBS, **knobs)
+        img_k = _render(scene, cfg, cam, dev, 0, 1)
+        mod, name, plain = ((bvh_walk, "bvh_walk", bvh_walk.bvh_walk_plain) if walk == "binary"
+                            else (stream, "stream_walk", stream_walk.stream_walk_plain))
+        t0 = time.perf_counter()
+        with mock.patch.object(mod, name, plain):
+            img_p = _render(scene, cfg, cam, dev, 0, 1)
+        _sync(dev)
+        say(f"[5c parity] {walk} {w}x{h} @ 2 spp, kernel vs plain: "
+            f"{_parity(img_k, img_p, f'{walk} kernel render', 0.01, 0.03)} "
+            f"(plain render {time.perf_counter() - t0:.1f} s)")
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -468,6 +671,11 @@ KERNELS = {
                           "surf_tpu/accel/pallas_instanced.py:260"),
     "inst_rows_any": ("surf_tpu_torch/csrc/inst_rows.cu",
                       "surf_tpu/accel/pallas_instanced.py:260"),
+    **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
+                                "surf_tpu/accel/pallas_wide.py:862")
+       for a in ("skip", "stack") for m in ("closest", "any")},
+    **{f"bvh_walk_{m}": ("surf_tpu_torch/csrc/bvh_walk.cu",
+                         "surf_tpu/accel/pallas_traverse.py:193") for m in ("closest", "any")},
 }
 
 
@@ -479,12 +687,16 @@ def main() -> int:
     phase_build()
     kernels = phase_kernel(dev)
     kernels.update(phase_inst_kernel(dev))
-    launches = phase_bench(dev)
+    kernels.update(phase_stream_kernel(dev))
+    kernels.update(phase_bvh_kernel(dev))
+    launches, bench_img = phase_bench(dev)
     launches.update(phase_twolevelp_bench(dev))
+    launches.update(phase_walk_bench(dev, bench_img))
     for name, err in phase_capacity(dev).items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     phase_parity(dev)
     phase_twolevelp_parity(dev)
+    phase_walk_parity(dev)
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

@@ -4,9 +4,9 @@ The library has a plain C interface and is loaded with ctypes; it is
 compiled with nvcc for ``sm_90a`` into ``surf_tpu_torch/_build/`` (listed
 in ``.gitignore``), under a name that carries a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one is reused.  The
-sources are the only input.  Each source is compiled by its own nvcc
-process, all started together, and the objects are then linked into the
-library.  ``--fmad=false`` keeps every multiply and add separately rounded,
+sources and the headers they include (``csrc/*.cuh``) are the only input.
+Each source is compiled by its own nvcc process, all started together,
+and the objects are then linked into the library.  ``--fmad=false`` keeps every multiply and add separately rounded,
 as the plain PyTorch versions compute them.
 """
 
@@ -49,7 +49,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsurf_kernels-{h.hexdigest()[:16]}.so"
@@ -104,7 +104,20 @@ def library() -> ctypes.CDLL:
             # n_rays, block_rays, t, r, u, v, inst, stream
             fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in ("leaf_rows_threads_per_block", "inst_rows_threads_per_block"):
+        for name in ("stream_walk_skip_closest", "stream_walk_skip_any",
+                     "stream_walk_stack_closest", "stream_walk_stack_any"):
+            fn = getattr(lib, name)
+            # stream, n_entries, rays, act, n_rays, block_rays, stack_depth,
+            # t, r, u, v, visits, stream
+            fn.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
+            fn.restype = i
+        for name in ("bvh_walk_closest", "bvh_walk_any"):
+            fn = getattr(lib, name)
+            # nodes, n_nodes, tris, rays, act, n_rays, t, p, u, v, counts, stream
+            fn.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p]
+            fn.restype = i
+        for name in ("leaf_rows_threads_per_block", "inst_rows_threads_per_block",
+                     "stream_walk_threads_per_block", "bvh_walk_threads_per_block"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         _LIB = lib

@@ -53,6 +53,13 @@ class Hit(NamedTuple):
     v: torch.Tensor     # [N] f32
 
 
+def nudge(direction: torch.Tensor) -> torch.Tensor:
+    """Exactly-zero direction components to +-1e-20, so 1/d is finite and
+    a slab test never meets 0 * inf (pallas_wide.py:1949-1953)."""
+    tiny = torch.where(direction < 0, -1e-20, 1e-20)
+    return torch.where(direction.abs() < 1e-20, tiny, direction)
+
+
 def _packet_bits(box_lo, box_hi, o3, inv3, tm):
     """Slab test of every box against every ray of P packets: box_lo/hi
     [3, EB], o3/inv3 [3, P, R], tm [P, R] -> [P, EB] bool (some ray hits)."""
@@ -110,10 +117,7 @@ def prepare(trace: LeafTrace, origin: torch.Tensor, direction: torch.Tensor,
     pad = (-n) % block_rays
     g = (n + pad) // block_rays
     dev = origin.device
-    # Nudge exactly-zero direction components so 1/d is finite and the slab
-    # test never meets 0 * inf (pallas_wide.py:1949-1953).
-    tiny = torch.where(direction < 0, -1e-20, 1e-20)
-    direction = torch.where(direction.abs() < 1e-20, tiny, direction)
+    direction = nudge(direction)
     tmf = torch.where(active, t_max.to(torch.float32), -F32_FAR_AWAY)
     rays = torch.cat([origin.T, direction.T, tmf[None]], dim=0)
     if pad:

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.vecmath import F32_FAR_AWAY
-from .bits import _leaf_vis, _packet_bits
+from .bits import _leaf_vis, _packet_bits, nudge
 from .builder import build_blas
 from .inst_rows import inst_rows, object_rays
 from .wide import LEAF_TRIS, build_leaf_table
@@ -176,12 +176,6 @@ def build_instanced_trace(meshes, instances, device: torch.device,
     return InstancedHost(trace=trace, perms=perms)
 
 
-def _nudge(d: torch.Tensor) -> torch.Tensor:
-    """Direction components below 1e-20 in magnitude become +-1e-20, so 1/d
-    is finite and the slab test never meets 0 * inf."""
-    return torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
-
-
 def prepare(trace: InstancedTrace, origin: torch.Tensor,
             direction: torch.Tensor, t_max: torch.Tensor,
             active: torch.Tensor, block_rays: int = BLOCK):
@@ -195,7 +189,7 @@ def prepare(trace: InstancedTrace, origin: torch.Tensor,
     g = (n + pad) // block_rays
     dev = origin.device
     tmf = torch.where(active, t_max.to(torch.float32), -F32_FAR_AWAY)
-    rays = torch.cat([origin.T, _nudge(direction).T, tmf[None]], dim=0)
+    rays = torch.cat([origin.T, nudge(direction).T, tmf[None]], dim=0)
     if pad:
         fill = torch.tensor([0, 0, 0, 1, 1, 1, -F32_FAR_AWAY],
                             dtype=torch.float32, device=dev)
@@ -236,7 +230,7 @@ def prepare(trace: InstancedTrace, origin: torch.Tensor,
         for s in range(0, pk.shape[0], chunk):
             p_, i_ = pk[s:s + chunk], inst[s:s + chunk]
             oi, di = object_rays(trace.inv[i_], o3[:, p_], d3[:, p_])
-            bits = _packet_bits(lo, hi, oi, 1.0 / _nudge(di), tm[p_])
+            bits = _packet_bits(lo, hi, oi, 1.0 / nudge(di), tm[p_])
             vis.append(_leaf_vis(bits, list(meta.sizes[m])))
         vis = torch.cat(vis)                                  # [P, L_m]
         L = vis.shape[1]

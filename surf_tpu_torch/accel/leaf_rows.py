@@ -101,23 +101,16 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
     return t, r, u, v
 
 
-def mt_chunk(rows: torch.Tensor, live: torch.Tensor, o, d, best,
-             any_hit: bool):
-    """One chunk of rows of the plain versions: Möller–Trumbore of every
-    ray against every record of the chunk, and the strictly-closer update.
+def mt_records(rec: torch.Tensor, o, d):
+    """Möller–Trumbore of rays against triangle records, in the operand
+    order of ``pallas_wide.py:225-238`` (the kernels' ``mt_hit``).
 
-    rows [G, K, 128] with live [G, K] (dead rows never hit); o and d are
-    (x, y, z) triples of [G, R, 1]; best = (t, r, u, v), each [G, R].
-    Within the chunk the first record (in row order) with the least t
-    below the running best wins, which is the winner of the kernels'
-    one-by-one strictly-closer updates.  Returns the new best and the
-    [G, R] mask of rays whose best changed (with ``any_hit`` only t moves)."""
-    G, K = rows.shape[:2]
-    rec = rows.reshape(G, 1, K * TRIS, REC)
-    live = live.repeat_interleave(TRIS, dim=1)[:, None, :]
+    rec [G, 1, M, 16] (v0, e1, e2 in lanes 0-8); o and d are (x, y, z)
+    triples of [G, R, 1].  Returns (t, u, v, ok), each [G, R, M]; ok is
+    every test but the t_max bound: |det| >= eps, the barycentric range
+    and t >= eps."""
     ox, oy, oz = o
     dx, dy, dz = d
-    best_t, best_r, best_u, best_v = best
     v0x, v0y, v0z = rec[..., 0], rec[..., 1], rec[..., 2]
     e1x, e1y, e1z = rec[..., 3], rec[..., 4], rec[..., 5]
     e2x, e2y, e2z = rec[..., 6], rec[..., 7], rec[..., 8]
@@ -135,8 +128,28 @@ def mt_chunk(rows: torch.Tensor, live: torch.Tensor, o, d, best,
     qz = sx * e1y - sy * e1x
     v = f * (dx * qx + dy * qy + dz * qz)
     t = f * (e2x * qx + e2y * qy + e2z * qz)
-    hit = ((a.abs() >= EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
-           & (u + v <= 1.0) & (t >= EPS) & (t < best_t[..., None]) & live)
+    ok = ((a.abs() >= EPS) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= EPS))
+    return t, u, v, ok
+
+
+def mt_chunk(rows: torch.Tensor, live: torch.Tensor, o, d, best,
+             any_hit: bool):
+    """One chunk of rows of the plain versions: Möller–Trumbore of every
+    ray against every record of the chunk, and the strictly-closer update.
+
+    rows [G, K, 128] with live [G, K] (dead rows never hit); o and d are
+    (x, y, z) triples of [G, R, 1]; best = (t, r, u, v), each [G, R].
+    Within the chunk the first record (in row order) with the least t
+    below the running best wins, which is the winner of the kernels'
+    one-by-one strictly-closer updates.  Returns the new best and the
+    [G, R] mask of rays whose best changed (with ``any_hit`` only t moves)."""
+    G, K = rows.shape[:2]
+    rec = rows.reshape(G, 1, K * TRIS, REC)
+    live = live.repeat_interleave(TRIS, dim=1)[:, None, :]
+    best_t, best_r, best_u, best_v = best
+    t, u, v, ok = mt_records(rec, o, d)
+    hit = ok & (t < best_t[..., None]) & live
     t_min, j = torch.where(hit, t, torch.inf).min(dim=2)
     upd = hit.any(dim=2)
     best_t = torch.where(upd, t_min, best_t)

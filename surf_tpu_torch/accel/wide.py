@@ -1,12 +1,27 @@
-"""The dense leaf table the traversals read (the port's copy of
-``surf_tpu.accel.wide.build_leaf_table`` and what it needs).
+"""The layouts the traversals read: the port's copies of
+``surf_tpu.accel.wide.build_leaf_table`` (the dense leaf table of
+``bitsru8``) and of ``build_wide_stream`` / ``pad_wide_stream`` (the 8-wide
+DFS stream of the ``skip`` and ``stack`` walks).
 
-Leaf-ordered triangles are packed 8 to a 128-lane row, each in a 16-lane
+Leaf table.  Leaf-ordered triangles are packed 8 to a 128-lane row, each in a 16-lane
 record: v0 at lanes 0-2, e1 = v1 - v0 at 3-5, e2 = v2 - v0 at 6-8, and the
 record's leaf-order triangle slot as int32 bits in lane 9 (-1 for
 padding).  Zero records fail the Möller–Trumbore |det| >= eps test, so no
 count field is needed.  Over the rows sits an arithmetic 8-ary box
 hierarchy: each level boxes 8 consecutive entries of the level below.
+
+Stream.  The binary SAH BVH collapsed into a branching-factor-8 tree and
+flattened into one DFS-preorder table of 128-lane rows of two kinds:
+
+- node row: child slot k at lanes [16k, 16k+6) = the child's box lo/hi,
+  and lanes 16k+6, 16k+7 = (child's stream position, child is a leaf) as
+  int32.  Empty slots carry NaN boxes, which fail every slab comparison;
+- leaf row: triangle j at lanes [16j, 16j+9) = v0, e1, e2 (zero padding
+  fails the Möller–Trumbore |det| >= eps test).
+
+Lane 9 (int32) is 1 for leaf rows and 0 for node rows, lane 10 (int32) the
+skip link, the stream position after the row's subtree.  Per node the
+order is [node row][its leaf-item rows][child subtrees...].
 """
 
 from __future__ import annotations
@@ -15,11 +30,14 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .builder import triangle_bounds
+from .builder import BVH, triangle_bounds
 
 LEAF_TRIS = 8        # triangles per leaf row
 LANE = 128
 REC = 16
+WIDTH = 8            # children per stream node row
+IS_LEAF_LANE = 9
+SKIP_LANE = 10
 
 
 class LeafTable(NamedTuple):
@@ -95,3 +113,194 @@ def build_leaf_table(tv0, tv1, tv2) -> LeafTable:
     for k in range(maxd):
         anc[:, k] = offs[k] + r // (8 ** k)
     return LeafTable(table, rec, box_lo, box_hi, anc, n0)
+
+
+class WideStream(NamedTuple):
+    """The 8-wide DFS stream (host arrays)."""
+
+    stream: np.ndarray    # [E, 128] f32 node and leaf rows
+    rec_slot: np.ndarray  # [E * 8] int32: record -> leaf-order tri slot (-1)
+
+
+def build_wide_stream(bvh: BVH, tri_v0, tri_v1, tri_v2) -> WideStream:
+    """Collapse a binary BVH over *leaf-ordered* triangles (vertices already
+    permuted by ``bvh.indices``) into the wide DFS stream
+    (``surf_tpu/accel/wide.py:105-310``, without the refit provenance and
+    the own-box / ancestor arrays, which no ported walk reads)."""
+    tv0 = np.asarray(tri_v0, np.float32)
+    tv1 = np.asarray(tri_v1, np.float32)
+    tv2 = np.asarray(tri_v2, np.float32)
+    tlo, thi = triangle_bounds(tv0, tv1, tv2)
+
+    count = bvh.count
+    left_first = bvh.left_first
+    node_lo, node_hi = bvh.node_lo, bvh.node_hi
+
+    # items: ('n', i) binary node | ('l', first, cnt) leaf triangle range
+    def item_box(it):
+        if it[0] == "n":
+            return node_lo[it[1]], node_hi[it[1]]
+        return tlo[it[1]:it[1] + it[2]].min(axis=0), thi[it[1]:it[1] + it[2]].max(axis=0)
+
+    def expandable(it):
+        if it[0] == "n":
+            return count[it[1]] == 0 or count[it[1]] > LEAF_TRIS
+        return it[2] > LEAF_TRIS
+
+    def area(it):
+        lo, hi = item_box(it)
+        e = hi - lo
+        return float(e[0] * e[1] + e[1] * e[2] + e[2] * e[0])
+
+    def expand(it):
+        if it[0] == "n" and count[it[1]] == 0:
+            l = int(left_first[it[1]])
+            return [("n", l), ("n", l + 1)]
+        first, cnt = (int(left_first[it[1]]), int(count[it[1]])) \
+            if it[0] == "n" else (it[1], it[2])
+        h = cnt // 2
+        return [("l", first, h), ("l", first + h, cnt - h)]
+
+    def merge_adjacent_leaves(items):
+        """Merge sibling leaf ranges that are contiguous in leaf order and
+        fit one row."""
+        def rng(it):
+            if it[0] == "l":
+                return it[1], it[2]
+            if count[it[1]] > 0:
+                return int(left_first[it[1]]), int(count[it[1]])
+            return None
+        changed = True
+        while changed:
+            changed = False
+            for i in range(len(items)):
+                a = rng(items[i])
+                if a is None:
+                    continue
+                for j in range(len(items)):
+                    if i == j:
+                        continue
+                    b = rng(items[j])
+                    if b is None:
+                        continue
+                    if a[0] + a[1] == b[0] and a[1] + b[1] <= LEAF_TRIS:
+                        items[i] = ("l", a[0], a[1] + b[1])
+                        del items[j]
+                        changed = True
+                        break
+                if changed:
+                    break
+        return items
+
+    def make_children(root_items):
+        items = merge_adjacent_leaves(list(root_items))
+        while len(items) < WIDTH:
+            cands = [i for i, it in enumerate(items) if expandable(it)]
+            if not cands:
+                break
+            pick = max(cands, key=lambda i: area(items[i]))
+            items[pick:pick + 1] = expand(items[pick])
+        return items
+
+    rows: list[np.ndarray] = []
+    recs: list[np.ndarray] = []
+
+    def emit_leaf_row(tri_slots) -> int:
+        """One leaf item -> one row (<= 8 tris); returns its position.
+        Triangle data is filled vectorized afterwards (_fill_leaf_rows)."""
+        pos = len(rows)
+        row = np.zeros(LANE, np.float32)
+        rec = np.full(LEAF_TRIS, -1, np.int32)
+        rec[: len(tri_slots)] = tri_slots
+        row[IS_LEAF_LANE:SKIP_LANE + 1] = np.array([1, pos + 1], np.int32).view(np.float32)
+        rows.append(row)
+        recs.append(rec)
+        return pos
+
+    def emit_node(items):
+        pos = len(rows)
+        rows.append(np.zeros(LANE, np.float32))  # placeholder
+        recs.append(np.full(LEAF_TRIS, -1, np.int32))
+        boxes, child_pos, child_leaf, interior = [], [], [], []
+        for k, it in enumerate(items):
+            boxes.append(item_box(it))
+            if it[0] == "n" and count[it[1]] == 0:
+                l = int(left_first[it[1]])
+                interior.append((k, make_children([("n", l), ("n", l + 1)])))
+                child_pos.append(-1)  # filled after recursion
+                child_leaf.append(0)
+            else:
+                first, cnt = (int(left_first[it[1]]), int(count[it[1]])) \
+                    if it[0] == "n" else (it[1], it[2])
+                child_pos.append(emit_leaf_row(range(first, first + cnt)))
+                child_leaf.append(1)
+        for k, child_items in interior:
+            child_pos[k] = emit_node(child_items)
+
+        row = np.zeros(LANE, np.float32)
+        for k, (lo, hi) in enumerate(boxes):
+            row[REC * k + 0: REC * k + 3] = lo
+            row[REC * k + 3: REC * k + 6] = hi
+            row[REC * k + 6: REC * k + 8] = np.array(
+                [child_pos[k], child_leaf[k]], np.int32).view(np.float32)
+        for k in range(len(boxes), WIDTH):
+            row[REC * k + 0: REC * k + 6] = np.nan  # empty slot: never hit
+        row[IS_LEAF_LANE:SKIP_LANE + 1] = np.array([0, len(rows)], np.int32).view(np.float32)
+        rows[pos] = row
+        return pos
+
+    if count[0] > 0:
+        root_items = make_children([("l", int(left_first[0]), int(count[0]))])
+    else:
+        l = int(left_first[0])
+        root_items = make_children([("n", l), ("n", l + 1)])
+    emit_node(root_items)
+
+    n_entries = len(rows)
+    # Pad to a multiple of 8 rows with inert leaf rows, at least one.
+    while len(rows) % 8 or len(rows) == n_entries:
+        row = np.zeros(LANE, np.float32)
+        row[IS_LEAF_LANE:SKIP_LANE + 1] = np.array(
+            [1, len(rows) + 1], np.int32).view(np.float32)
+        rows.append(row)
+        recs.append(np.full(LEAF_TRIS, -1, np.int32))
+
+    stream = np.stack(rows).astype(np.float32)
+    rec_slot = np.concatenate(recs).astype(np.int32)
+    _fill_leaf_rows(stream, rec_slot, tv0, tv1, tv2)
+    return WideStream(stream, rec_slot)
+
+
+def pad_wide_stream(ws: WideStream, target_rows: int) -> WideStream:
+    """Pad a built stream to ``target_rows`` rows with inert node rows
+    (``surf_tpu/accel/wide.py:479-517``): every slot box is NaN and the
+    skip link jumps to ``target_rows``, so a walk that reaches the pad pays
+    one visit and exits."""
+    e0 = ws.stream.shape[0]
+    if target_rows <= e0:
+        return ws
+    add = target_rows - e0
+    rows = np.full((add, LANE), np.nan, np.float32)
+    rows[:, IS_LEAF_LANE:SKIP_LANE + 1] = np.array([0, target_rows], np.int32).view(np.float32)
+    return ws._replace(
+        stream=np.concatenate([ws.stream, rows]),
+        rec_slot=np.concatenate([ws.rec_slot, np.full(add * LEAF_TRIS, -1, np.int32)]))
+
+
+def stream_depth(stream: np.ndarray) -> int:
+    """The node-tree depth of a stream, read from its child pointers (the
+    root row 0 is depth 1; rows are in DFS preorder, so a parent precedes
+    its children).  ``from_render_scene`` takes the depth from here for
+    the port's arrays and the JAX package's alike (its ``RenderScene``
+    does not carry the depth)."""
+    meta = stream[:, IS_LEAF_LANE].view(np.int32)
+    ptr = stream.view(np.int32).reshape(len(stream), WIDTH, REC)[:, :, 6:8]
+    boxes = stream.reshape(len(stream), WIDTH, REC)[:, :, 0]
+    depth = np.zeros(len(stream), np.int64)
+    depth[0] = 1
+    for r in np.nonzero(meta == 0)[0]:
+        if depth[r] == 0:
+            continue  # a pad row, reached from no node
+        kids = ptr[r][~np.isnan(boxes[r]) & (ptr[r][:, 1] == 0)][:, 0]
+        depth[kids] = depth[r] + 1
+    return int(depth.max())

@@ -3,6 +3,8 @@
 
     python -m surf_tpu_torch.breakdown --scene stress --algo twolevelp
     python -m surf_tpu_torch.breakdown --scene indoor --algo bitsru8
+    python -m surf_tpu_torch.breakdown --scene indoor --algo skip    # or stack
+    python -m surf_tpu_torch.breakdown --scene indoor --algo binary  # use_wide=False
 
 Runs on the card at 512x512 with the bench knobs (the stress scene with
 32 instances, as ``chip_smoke.py`` renders it): one warm-up spp, 4
@@ -28,7 +30,7 @@ from unittest import mock
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from .accel import bits, instanced
+from .accel import bits, bvh_walk, instanced, stream
 from .core import sampling
 from .scene import builtin
 from .scene.camera import CameraParams
@@ -43,7 +45,9 @@ TIMED_SPP = 4     # unprofiled spp timed on the host clock
 # hand-written kernels are launched through ctypes, outside any torch op,
 # so the profiler links them to no CPU event: they count by name.
 OWN_KERNELS = {"leaf_rows_kernel": "leaf_rows kernel",
-               "inst_rows_kernel": "inst_rows kernel"}
+               "inst_rows_kernel": "inst_rows kernel",
+               "stream_walk_": "stream_walk kernel",
+               "bvh_walk_kernel": "bvh_walk kernel"}
 LAYERS = (
     (wi, "ray_generation", "raygen"),
     (wi, "compact_paths", "compaction"),
@@ -51,6 +55,8 @@ LAYERS = (
     (bits, "leaf_rows", "leaf_rows kernel"),
     (instanced, "prepare", "twolevelp phases 0/1"),
     (instanced, "inst_rows", "inst_rows kernel"),
+    (stream, "stream_walk", "stream_walk kernel"),
+    (bvh_walk, "bvh_walk", "bvh_walk kernel"),
     (wi, "_next_event", "NEE (not its traversal)"),
     (sampling, "cosine_hemisphere", "cosine sampling"),
 )
@@ -79,7 +85,8 @@ def _union_us(intervals) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("indoor", "stress"), default="stress")
-    ap.add_argument("--algo", choices=wi.ALGOS, default="twolevelp")
+    ap.add_argument("--algo", choices=(*wi.ALGOS, "binary"), default="twolevelp",
+                    help="a RenderConfig algo, or binary: the binary walk (use_wide=False)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: no CUDA device")
@@ -92,7 +99,9 @@ def main(argv=None) -> None:
         scene = builtin.make_indoor_scene()
         cam = builtin.make_indoor_camera(w, h)
     ts = compile_scene(scene, dev, two_level="pure" if args.algo == "twolevelp" else False)
-    cfg = wi.RenderConfig.for_scene(ts, w, h, 1, use_defocus=True)._replace(**wi.BENCH_KNOBS)
+    walk = dict(use_wide=False) if args.algo == "binary" else dict(algo=args.algo)
+    cfg = wi.RenderConfig.for_scene(ts, w, h, 1, use_defocus=True)._replace(
+        **wi.BENCH_KNOBS, **walk)
     cp = CameraParams.from_camera(cam, dev)
 
     seed = wi.initial_seeds(cfg, 16, dev)

@@ -30,7 +30,7 @@
 // segment as ((a0*x + a1*y) + a2*z) + a3 (direction without a3, not
 // normalised, so t is the world parameter), in the order of the torch
 // phase 1; instances ascending, rows ascending, the 8 records in order,
-// replacement only on a strictly closer t; f = 1 / a is an IEEE division;
+// replacement only on a strictly closer t; the arithmetic is mt.cuh's;
 // NaNs of all-zero rows fail every compare; the slot is the int32 bit
 // pattern of lane 9.  A negative count sweeps the instance's whole mesh
 // (its first table row and row count rounded up to 8) in leaf order, which
@@ -39,6 +39,8 @@
 
 #include <cuda_runtime.h>
 
+#include "mt.cuh"
+
 namespace {
 
 constexpr int kLane = 128;    // floats per leaf-table row
@@ -46,7 +48,6 @@ constexpr int kRec = 16;      // floats per triangle record
 constexpr int kTris = 8;      // triangles per row
 constexpr int kThreads = 256; // rays per block
 constexpr int kChunk = 32;    // rows staged in shared memory at a time
-constexpr float kEps = 1e-5f;
 
 template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
@@ -115,26 +116,10 @@ inst_rows_kernel(const float* __restrict__ table,
 #pragma unroll
         for (int j = 0; j < kTris; ++j) {
           const float* rec = rows + k * kLane + j * kRec;
-          const float v0x = rec[0], v0y = rec[1], v0z = rec[2];
-          const float e1x = rec[3], e1y = rec[4], e1z = rec[5];
-          const float e2x = rec[6], e2y = rec[7], e2z = rec[8];
-          const float hx = dyi * e2z - dzi * e2y;
-          const float hy = dzi * e2x - dxi * e2z;
-          const float hz = dxi * e2y - dyi * e2x;
-          const float det = e1x * hx + e1y * hy + e1z * hz;
-          const float f = 1.0f / det;
-          const float sx = oxi - v0x;
-          const float sy = oyi - v0y;
-          const float sz = ozi - v0z;
-          const float u = f * (sx * hx + sy * hy + sz * hz);
-          const float qx = sy * e1z - sz * e1y;
-          const float qy = sz * e1x - sx * e1z;
-          const float qz = sx * e1y - sy * e1x;
-          const float v = f * (dxi * qx + dyi * qy + dzi * qz);
-          const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-          const bool hit = (fabsf(det) >= kEps) & (u >= 0.0f) & (u <= 1.0f) &
-                           (v >= 0.0f) & (u + v <= 1.0f) & (t >= kEps) &
-                           (t < best_t);
+          float t, u, v;
+          const bool hit = surf::mt_hit(
+              rec[0], rec[1], rec[2], rec[3], rec[4], rec[5], rec[6], rec[7],
+              rec[8], oxi, oyi, ozi, dxi, dyi, dzi, best_t, t, u, v);
           if (hit) {
             best_t = t;
             best_i = inst;

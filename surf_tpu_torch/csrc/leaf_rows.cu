@@ -20,14 +20,17 @@
 // the same address (a broadcast, free of bank conflicts).
 //
 // Semantics kept from the TPU kernel: rows in list order, triangles j = 0..7
-// within a row, replacement only on a strictly closer t; f = 1 / a is an
-// IEEE division; the NaNs of all-zero (inert) rows fail every compare; the
-// slot id is the int32 bit pattern of lane 9 of the record.  A list length
+// within a row, replacement only on a strictly closer t; the arithmetic is
+// mt.cuh's (f = 1 / a is an IEEE division); the NaNs of all-zero (inert)
+// rows fail every compare; the slot id is the int32 bit pattern of lane 9
+// of the record.  A list length
 // below zero selects the sweep over all table rows, and a packet whose
 // length is 0 (no live ray) reads no rows.  Build with --fmad=false so the
 // arithmetic rounds exactly as the plain PyTorch version's separate ops do.
 
 #include <cuda_runtime.h>
+
+#include "mt.cuh"
 
 namespace {
 
@@ -36,7 +39,6 @@ constexpr int kRec = 16;      // floats per triangle record
 constexpr int kTris = 8;      // triangles per row
 constexpr int kThreads = 256; // rays per block
 constexpr int kChunk = 32;    // rows staged in shared memory at a time
-constexpr float kEps = 1e-5f;
 
 template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
@@ -83,26 +85,10 @@ leaf_rows_kernel(const float* __restrict__ table, int table_rows,
 #pragma unroll
       for (int j = 0; j < kTris; ++j) {
         const float* rec = rows + k * kLane + j * kRec;
-        const float v0x = rec[0], v0y = rec[1], v0z = rec[2];
-        const float e1x = rec[3], e1y = rec[4], e1z = rec[5];
-        const float e2x = rec[6], e2y = rec[7], e2z = rec[8];
-        const float hx = dy * e2z - dz * e2y;
-        const float hy = dz * e2x - dx * e2z;
-        const float hz = dx * e2y - dy * e2x;
-        const float a = e1x * hx + e1y * hy + e1z * hz;
-        const float f = 1.0f / a;
-        const float sx = ox - v0x;
-        const float sy = oy - v0y;
-        const float sz = oz - v0z;
-        const float u = f * (sx * hx + sy * hy + sz * hz);
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float v = f * (dx * qx + dy * qy + dz * qz);
-        const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-        const bool hit = (fabsf(a) >= kEps) & (u >= 0.0f) & (u <= 1.0f) &
-                         (v >= 0.0f) & (u + v <= 1.0f) & (t >= kEps) &
-                         (t < best_t);
+        float t, u, v;
+        const bool hit = surf::mt_hit(rec[0], rec[1], rec[2], rec[3], rec[4],
+                                      rec[5], rec[6], rec[7], rec[8], ox, oy,
+                                      oz, dx, dy, dz, best_t, t, u, v);
         if (hit) {
           best_t = t;
           if (!kAny) {

@@ -3,11 +3,14 @@
 Two compiles, ports of the two branches of
 ``surf_tpu.scene.compile.HostCompiled`` that the render reads:
 
-- flattened (``TorchScene``, compile.py:131-176, 304-429): instances are
-  pre-transformed to world space, one SAH BVH is built over all world
-  triangles (``accel.builder.build_blas`` with min_leaf=4, max_leaf=8) and
-  its leaf order is packed into the dense leaf table
-  (``accel.wide.build_leaf_table``);
+- flattened (``TorchScene``, compile.py:131-176, 282-429): instances are
+  pre-transformed to world space and one SAH BVH is built over all world
+  triangles (``accel.builder.build_blas`` with min_leaf=4, max_leaf=8).
+  The one tree feeds three layouts, one per traversal: the dense leaf
+  table of ``bitsru8`` (``accel.wide.build_leaf_table``), the 8-wide DFS
+  stream of ``skip`` / ``stack`` (``accel.wide.build_wide_stream``) and
+  the skip-link node list of the binary walk (``accel.skiplinks``).  The
+  stream and node list are padded to JAX's capacity classes;
 - pure two-level (``PureScene``, ``two_level="pure"``, compile.py:177-280):
   one object-space leaf table per unique mesh plus per-instance transforms
   (``accel.instanced``), and the shading set in object space, so device
@@ -29,9 +32,13 @@ import torch
 
 from ..accel.bits import LeafTrace
 from ..accel.builder import build_blas
+from ..accel.bvh_walk import BinaryTrace
 from ..accel.instanced import (InstancedMeta, InstancedTrace,
                                build_instanced_trace, make_trace)
-from ..accel.wide import build_leaf_table
+from ..accel.skiplinks import build_skiplinks, pack_trace_tables
+from ..accel.stream import StreamTrace
+from ..accel.wide import (build_leaf_table, build_wide_stream, pad_wide_stream,
+                          stream_depth)
 from .material import build_material_table
 from .scene import Scene
 
@@ -41,7 +48,9 @@ class TorchScene(NamedTuple):
     render reads).  Leaf-order arrays are indexed by traversal slot;
     ``samp_*`` are in the original instance-contiguous order."""
 
-    trace: LeafTrace
+    trace: LeafTrace               # bitsru8
+    stream: StreamTrace            # skip / stack
+    binary: BinaryTrace            # the binary walk (use_wide=False)
     perm: torch.Tensor             # [T] int32 leaf slot -> original tri id
     tri_inst: torch.Tensor         # [T] int32 leaf-ordered instance id
     samp_v0: torch.Tensor          # [T, 3] world-space vertices
@@ -115,6 +124,13 @@ _INST_KEYS = {"ltab": "inst_ltab", "box_lo": "inst_box_lo",
               "box_hi": "inst_box_hi", "inv": "inst_inv",
               "inst_lo": "inst_wlo", "inst_hi": "inst_whi"}
 _SCALARS = ("bg_type", "num_lights")
+_TRACES = ("trace", "stream", "binary")
+
+
+def _capacity(n: int, quantum: int = 1024) -> int:
+    """JAX's sticky capacity class on first use (compile.py:282-292): n
+    plus 12.5% headroom, rounded up to the quantum."""
+    return -(-int(n * 1.125 + 1) // quantum) * quantum
 
 
 def _dedupe_materials(scene: Scene):
@@ -167,8 +183,27 @@ def scene_arrays(scene: Scene) -> dict[str, np.ndarray]:
 
     bvh = build_blas(samp[0], samp[1], samp[2], min_leaf=4, max_leaf=8)
     perm = bvh.indices.astype(np.int64)
-    lt = build_leaf_table(samp[0][perm], samp[1][perm], samp[2][perm])
+    tv = [x[perm] for x in samp[:3]]
+    lt = build_leaf_table(*tv)
+    ws = build_wide_stream(bvh, *tv)
+    ws = pad_wide_stream(ws, _capacity(ws.stream.shape[0]))
+    boxes, meta = build_skiplinks(bvh)
+    # Capacity padding (compile.py:335-346): NaN boxes never hit, and a pad
+    # node's skip jumps to the end, so a packet reaching it pays one visit.
+    d_cap = _capacity(len(meta))
+    node_boxes = np.full((d_cap, 6), np.nan, np.float32)
+    node_boxes[:len(boxes)] = boxes
+    node_meta = np.zeros((d_cap, 3), np.int32)
+    node_meta[:, 2] = d_cap
+    node_meta[:len(meta)] = meta
+    nodes_packed, tris_packed = pack_trace_tables(*tv, node_boxes, node_meta)
     return {
+        "wide_stream": ws.stream,
+        "wide_rec_slot": ws.rec_slot,
+        "node_boxes": node_boxes,
+        "node_meta": node_meta,
+        "nodes_packed": nodes_packed,
+        "tris_packed": tris_packed,
         "wide_ltab": lt.table,
         "wide_box_lo": lt.box_lo.T.copy(),
         "wide_box_hi": lt.box_hi.T.copy(),
@@ -227,7 +262,9 @@ def from_render_scene(arrays: dict[str, np.ndarray], device: torch.device,
     arrays, keyed by their JAX names; extra keys are ignored.  Without
     ``inst_meta`` the leaves are the flattened compile's (plus the
     TraceArrays names ``wide_ltab``, ``wide_box_lo``, ``wide_box_hi``,
-    ``wide_anc``) and the result is a TorchScene.  With ``inst_meta`` (the
+    ``wide_anc``, ``wide_stream``, ``wide_rec_slot``, ``node_boxes``,
+    ``nodes_packed``, ``tris_packed``) and the result is a TorchScene; the
+    stream's depth is read from the stream.  With ``inst_meta`` (the
     fields of ``InstancedMeta`` as a plain tuple) they are the pure
     compile's (``inst_ltab``, ``inst_box_lo``, ``inst_box_hi``,
     ``inst_inv``, ``inst_wlo``, ``inst_whi``, ``inst_obj_base``,
@@ -245,9 +282,13 @@ def from_render_scene(arrays: dict[str, np.ndarray], device: torch.device,
         ltab = put("wide_ltab")
         trace = LeafTrace(inert_row=int(ltab.shape[0]) - 1, ltab=ltab,
                           **{k: put(v) for k, v in _TRACE_KEYS.items() if k != "ltab"})
+        stream = StreamTrace(put("wide_stream"), put("wide_rec_slot"),
+                             stream_depth(np.asarray(arrays["wide_stream"])))
+        binary = BinaryTrace(put("nodes_packed"), put("tris_packed"),
+                             int(np.asarray(arrays["node_boxes"]).shape[0]))
         fields = {f: put(f) for f in TorchScene._fields
-                  if f not in ("trace", *_SCALARS)}
-        return TorchScene(trace=trace, **scalars, **fields)
+                  if f not in (*_TRACES, *_SCALARS)}
+        return TorchScene(trace=trace, stream=stream, binary=binary, **scalars, **fields)
     meta = InstancedMeta(*inst_meta)
     inst = make_trace(*(arrays[v] for v in _INST_KEYS.values()), meta, device)
     fields = {f: put(f) for f in PureScene._fields if f not in ("inst", *_SCALARS)}

@@ -1,8 +1,10 @@
 """The wavefront path-tracing integrator (port of
-``surf_tpu.wavefront.integrator``, forward path): ``algo="bitsru8"`` over a
-flattened ``TorchScene`` or ``algo="twolevelp"`` over a pure two-level
-``PureScene``, whose shading re-derives world geometry per lane from the
-shared object-space meshes and the hit instance's forward transform.
+``surf_tpu.wavefront.integrator``, forward path).  A flattened
+``TorchScene`` is traversed by ``algo="bitsru8"``, ``"skip"`` or
+``"stack"``, or with ``use_wide=False`` by the binary packet walk; a pure
+two-level ``PureScene`` by ``algo="twolevelp"``, whose shading re-derives
+world geometry per lane from the shared object-space meshes and the hit
+instance's forward transform.
 
 Every pixel owns one path per sample in a dense SoA lane state; each wave
 runs extend (closest-hit traversal), shade (lobe select, Schlick
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from ..accel.bits import Hit, traverse_bits
+from ..accel.bvh_walk import traverse_binary
 from ..accel.instanced import traverse_instanced
+from ..accel.stream import traverse_stream
 from ..core import rng, sampling
 from ..core.vecmath import (
     F32_EPSILON,
@@ -41,7 +45,7 @@ from ..core.vecmath import (
 from ..scene.camera import CameraParams, ViewPlane, view_plane
 from ..scene.compile import PureScene, TorchScene
 
-ALGOS = ("bitsru8", "twolevelp")
+ALGOS = ("bitsru8", "skip", "stack", "twolevelp")
 # bench.py's render knobs (wave cap, packet size, compaction, width ladder,
 # lane order), applied with RenderConfig._replace(**BENCH_KNOBS).
 BENCH_KNOBS = dict(wave_limit=32, block_rays=2048, compact=True,
@@ -58,10 +62,15 @@ def algo_of(scene: TorchScene | PureScene) -> str:
 class RenderConfig(NamedTuple):
     """Render configuration: the fields of ``surf_tpu``'s RenderConfig that
     the forward path reads, with the same names and defaults.  ``algo``
-    names the traversal, which the scene's type decides (``algo_of``):
-    ``for_scene`` sets it, and ``render_frame_seeded`` raises if it names
-    another.  The wave loop always runs until every path has terminated or
-    ``wave_limit`` waves (JAX's ``max_bounces=None`` mode)."""
+    names the traversal, with JAX's precedence: "twolevelp" (the only one
+    of a PureScene) goes to the instanced walk; else ``use_wide`` picks
+    "bitsru8", "skip" or "stack" over the 8-wide layouts, and
+    ``use_wide=False`` the binary packet walk.  ``for_scene`` picks
+    "bitsru8" or "twolevelp" by the scene's type (``algo_of``), and
+    ``render_frame_seeded`` raises on an algo that is not ported or does
+    not fit the scene.  The wave loop always runs until every path has
+    terminated or ``wave_limit`` waves (JAX's ``max_bounces=None``
+    mode)."""
 
     width: int
     height: int
@@ -75,7 +84,8 @@ class RenderConfig(NamedTuple):
     ladder: int = 0              # width-ladder rungs (0 = off)
     ladder_shrink: int = 4       # width divisor per rung
     pixel_order: str = "native"  # lane -> pixel map: "native" or "morton"
-    algo: str = "bitsru8"        # traversal: "bitsru8" or "twolevelp"
+    algo: str = "bitsru8"        # traversal, one of ALGOS
+    use_wide: bool = True        # False: the binary walk (unless twolevelp)
 
     @classmethod
     def for_scene(cls, scene: TorchScene | PureScene, width: int, height: int,
@@ -150,14 +160,21 @@ def ray_generation(cfg: RenderConfig, vp: ViewPlane, seed: torch.Tensor,
 
 def _traverse(scene: TorchScene | PureScene, cfg: RenderConfig, origin,
               direction, t_max, active, any_hit: bool):
-    """Closest-hit (or any-hit) traversal of the scene.  Returns (Hit,
+    """Closest-hit (or any-hit) traversal of the scene by cfg's walk
+    (``surf_tpu.wavefront.integrator._dispatch_traverse``).  Returns (Hit,
     inst): for a PureScene the hit's prim is the object-space triangle
     (``inst_obj_base[inst] + inst_slot_perm[base + slot]``) and ``inst``
     the hit instance (-1 on a miss); for a TorchScene prim is the leaf
     slot and ``inst`` is None."""
+    args = (origin, direction, t_max, active)
     if not isinstance(scene, PureScene):
-        return traverse_bits(scene.trace, origin, direction, t_max, active,
-                             any_hit=any_hit, block_rays=cfg.block_rays), None
+        if not cfg.use_wide:
+            return traverse_binary(scene.binary, *args, any_hit=any_hit), None
+        if cfg.algo == "bitsru8":
+            return traverse_bits(scene.trace, *args, any_hit=any_hit,
+                                 block_rays=cfg.block_rays), None
+        return traverse_stream(scene.stream, *args, any_hit=any_hit,
+                               block_rays=cfg.block_rays, algo=cfg.algo), None
     h = traverse_instanced(scene.inst, origin, direction, t_max, active,
                            any_hit=any_hit, block_rays=cfg.block_rays)
     found = h.prim >= 0
@@ -545,9 +562,11 @@ def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
     """Render cfg.spp samples continuing the per-pixel seed streams
     ``seed0``; returns (radiance sums [H, W, 3], final seeds).  Chunking a
     large spp budget into several calls gives the same image as one call."""
-    if cfg.algo != algo_of(scene):
-        raise ValueError(f"a {type(scene).__name__} renders with algo="
-                         f"{algo_of(scene)!r}, not {cfg.algo!r} (algos: {ALGOS})")
+    pure = isinstance(scene, PureScene)
+    if cfg.algo not in ALGOS or pure != (cfg.algo == "twolevelp"):
+        fits = "twolevelp" if pure else "bitsru8, skip, stack or use_wide=False"
+        raise ValueError(f"algo={cfg.algo!r} does not render a {type(scene).__name__} "
+                         f"(it renders with {fits}; the ported algos are {ALGOS})")
     vp = view_plane(cam, cfg.width, cfg.height)
     n = cfg.width * cfg.height
     dev = seed0.device

@@ -1,6 +1,7 @@
-"""The hand-written kernels (leaf rows, instanced leaf rows) against their
-plain PyTorch versions, on the card.  These tests need an NVIDIA GPU with nvcc and skip elsewhere.
-They import no JAX, so they run on a machine without it:
+"""The hand-written kernels (leaf rows, instanced leaf rows, the stream
+walks, the binary walk) against their plain PyTorch versions, on the card.
+These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
+no JAX, so they run on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -15,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from surf_tpu_torch.accel import bits, inst_rows, instanced
+from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
+                                  stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
 from surf_tpu_torch.scene import builtin
@@ -144,6 +146,78 @@ def test_twolevelp_render_through_kernel_matches_plain(stress, cuda):
     assert all(k > 0 for k in inst_rows.LAUNCHES.values())
     with mock.patch.object(instanced, "inst_rows", inst_rows.inst_rows_plain):
         img_p, seed_p = render_frame_seeded(ps, cfg, cam, initial_seeds(cfg, 0, cuda))
+    assert torch.isfinite(img_k).all() and (img_k >= 0).all()
+    assert torch.equal(img_k, img_p)
+    assert torch.equal(seed_k, seed_p)
+
+
+def _walk_rays(cuda, block):
+    """3 packets and 500 rays (not a whole packet), the second packet all
+    dead, through the traversals' own padding: (rays, act)."""
+    o, d, act = _rays(3 * 2048 + 500, seed=3, device=cuda)
+    act[block:2 * block] = False
+    return o, d, act
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("algo", ["skip", "stack"])
+def test_stream_walk_matches_plain_bit_exact(indoor, cuda, algo, any_hit):
+    o, d, act = _walk_rays(cuda, 2048)
+    tmax = torch.full((o.shape[0],), 6.0 if any_hit else 1e30, device=cuda)
+    rays, a = stream.pack_rays(o, bits.nudge(d), tmax, act, 2048)
+    args = (indoor.stream.stream, rays, a, 2048, algo, any_hit, indoor.stream.max_depth)
+    stream_walk.reset_launches()
+    got = stream_walk.stream_walk(*args)
+    want = stream_walk.stream_walk_plain(*args)
+    torch.cuda.synchronize()
+    assert stream_walk.LAUNCHES[f"stream_walk_{algo}_{'any' if any_hit else 'closest'}"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    visits = got[4]
+    assert visits.shape == (4, 2) and visits[1].tolist() == [0, 0]
+    assert (visits[[0, 2, 3], 1] > 0).all() and (got[1][2048:4096] == -1).all()
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_bvh_walk_matches_plain_bit_exact(indoor, cuda, any_hit):
+    o, d, act = _walk_rays(cuda, 1024)
+    d[:3] = torch.tensor([[1.0, 0, 0], [0, -1.0, 0], [0, 0, 1.0]], device=cuda)  # 1/0
+    tmax = torch.full((o.shape[0],), 6.0 if any_hit else 1e30, device=cuda)
+    rays, a = stream.pack_rays(o, d, tmax, act, 1024)
+    tr = indoor.binary
+    args = (tr.nodes, tr.tris, tr.n_nodes, rays, a, any_hit)
+    got = bvh_walk.bvh_walk(*args)
+    want = bvh_walk.bvh_walk_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    counts = got[4]
+    assert counts.shape == (7, 2) and counts[1].tolist() == [0, 0]
+    assert (got[1][1024:2048] == -1).all() and (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("walk", [dict(algo="skip"), dict(algo="stack"), dict(use_wide=False)],
+                         ids=["skip", "stack", "binary"])
+def test_walk_render_through_kernel_matches_plain(indoor, cuda, walk):
+    """A 64x64 render with the bench knobs but a wave cap of 8 (the plain
+    walks take a second a call on the card) through each walk's kernel
+    equals the same render with the plain version swapped in, bit for
+    bit."""
+    cfg = RenderConfig.for_scene(indoor, 64, 64, 1, use_defocus=True)._replace(
+        block_rays=2048, wave_limit=8, compact=True, compact_every=16,
+        ladder=6, ladder_shrink=2, pixel_order="morton", **walk)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(64, 64), cuda)
+    mod, name, plain = ((bvh_walk, "bvh_walk", bvh_walk.bvh_walk_plain) if "use_wide" in walk
+                        else (stream, "stream_walk", stream_walk.stream_walk_plain))
+    counts = bvh_walk.LAUNCHES if "use_wide" in walk else stream_walk.LAUNCHES
+    for k in counts:
+        counts[k] = 0
+    img_k, seed_k = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
+    torch.cuda.synchronize()
+    assert sum(counts.values()) > 0
+    with mock.patch.object(mod, name, plain):
+        img_p, seed_p = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
     assert torch.isfinite(img_k).all() and (img_k >= 0).all()
     assert torch.equal(img_k, img_p)
     assert torch.equal(seed_k, seed_p)

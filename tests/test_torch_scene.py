@@ -58,10 +58,21 @@ def test_compiled_arrays_equal_jax(pair):
         assert np.array_equal(_bits(val), _bits(ref[key])), key
 
 
+# TorchScene trace fields -> RenderScene / TraceArrays leaf.
+KEY_OF = {"ltab": "wide_ltab", "box_lo": "wide_box_lo", "box_hi": "wide_box_hi",
+          "anc": "wide_anc", "stream.stream": "wide_stream",
+          "stream.rec_slot": "wide_rec_slot", "binary.nodes": "nodes_packed",
+          "binary.tris": "tris_packed"}
+
+
 def _flat(ts: TorchScene) -> dict:
-    """TorchScene fields (trace fields inlined) as numpy arrays or ints."""
-    out = {f: getattr(ts, f) for f in TorchScene._fields if f != "trace"}
+    """TorchScene fields (trace fields inlined, those of the stream and
+    binary traces as ``stream.*`` / ``binary.*``) as numpy arrays or ints."""
+    out = {f: getattr(ts, f) for f in TorchScene._fields
+           if f not in ("trace", "stream", "binary")}
     out.update(ts.trace._asdict())
+    for name in ("stream", "binary"):
+        out.update({f"{name}.{k}": v for k, v in getattr(ts, name)._asdict().items()})
     return {k: v.numpy() if isinstance(v, torch.Tensor) else v
             for k, v in out.items()}
 
@@ -72,13 +83,14 @@ def test_from_render_scene_round_trip(pair):
     host, scene = pair
     ref = _render_scene_arrays(host)
     got = _flat(from_render_scene(ref, CPU))
-    key_of = {"ltab": "wide_ltab", "box_lo": "wide_box_lo",
-              "box_hi": "wide_box_hi", "anc": "wide_anc"}
+    own = _flat(compile_scene(scene, CPU))
     assert got.pop("num_lights") == host.static.num_lights
     assert got.pop("inert_row") == ref["wide_ltab"].shape[0] - 1
+    # the stream depth is read from the stream; HostCompiled keeps its own
+    assert got.pop("stream.max_depth") == own.pop("stream.max_depth") == host._ws.max_depth
+    assert got.pop("binary.n_nodes") == own.pop("binary.n_nodes") == ref["node_boxes"].shape[0]
     for f, val in got.items():
-        assert np.array_equal(_bits(val), _bits(ref[key_of.get(f, f)])), f
-    own = _flat(compile_scene(scene, CPU))
+        assert np.array_equal(_bits(val), _bits(ref[KEY_OF.get(f, f)])), f
     for f, val in got.items():
         assert np.array_equal(_bits(val), _bits(own[f])), f
 
