@@ -60,9 +60,28 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      of pixels off by more than 1e-3, energy within 0.5%);
   5c. walk parity: the indoor scene at 64x64 @ 2 spp with the bench knobs
      through each new walk's kernel and through its plain version on the
-     card (the gates of phase 5; bit equality expected).
-Then a JSON line of per-kernel results and, last, the device summary.
-Imports no JAX.
+     card (the gates of phase 5; bit equality expected);
+  3e. leaf-row variants: every further entry point of the leaf-row kernel
+     (Baldwin–Weber, the ILP merge, bf16, carry-in) against its plain
+     version on phase 3's six ray sets: bit-identical or the phase fails.
+     A carry-in entry point resumes over each list's rows past the first
+     CARRY_ROWS from a round-A call of its non-carry twin over those rows
+     (the sweeps all in round A), and must then equal the one-call result;
+  4e. bits benches: one 512x512 @ 16 spp frame at phase 4's seeds through
+     each algo of BITS_ALGOS (frame time, rays/s, energy, launches per
+     entry point, peak memory): those of EXACT_ALGOS within 0.1% of
+     pixels (ties) of phase 4's bitsru8 image; those of ROUNDING_ALGOS,
+     whose record test rounds otherwise, with their energy relative to it
+     inside ENERGY_BAND and their pixels' distance printed; then a
+     512x512 @ 1 spp frame through each algo of CARRY_ALGOS (the carry-in
+     entry points no frame above launches), held the same way to a 1 spp
+     bitsru8 frame at the same seeds.  An entry point's launches in the
+     kernels line are those of the first frame that drives it;
+  5e. bits parity: 64x64 @ 2 spp through PARITY_ALGOS with the kernel and
+     with leaf_rows swapped for its plain version: bit equality or the
+     phase fails.
+Each phase prints its seconds.  Then a JSON line of per-kernel results
+and, last, the device summary.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -90,15 +109,48 @@ STRESS_N = 32
 BENCH_KNOBS = wi.BENCH_KNOBS
 BLOCK = BENCH_KNOBS["block_rays"]
 # The least time the card could take for the same work: H100 SXM
-# peaks at 700 W, 67 TFLOP/s FP32 outside the tensor cores and 3.35 TB/s.
-PEAK_FLOPS = 67e12
+# peaks at 700 W, 67 TFLOP/s FP32 outside the tensor cores and 3.35 TB/s;
+# bf16 arithmetic outside the tensor cores (packed bf16x2) runs at twice
+# the FP32 rate, 133.8 TFLOP/s (NVIDIA's H100 data sheet).  No ray test is
+# a matrix product, so the tensor cores' rates do not apply.
+PEAK_FLOPS = {"f32": 67e12, "bf16": 133.8e12}
 PEAK_BYTES = 3.35e12
 MT_FLOPS = 48      # one ray x triangle Moller-Trumbore test (division as one)
+# Of those, the multiplies, adds and the reciprocal of the polynomial (h:
+# 9, a: 5, 1 / a, s: 3, u: 6, q: 9, v: 6, t: 6) are bf16 operations in
+# the bf16 test (mt.cuh mt_hit_bf16); the rest run in f32.
+MT_BF16_FLOPS = 45
+# One ray x triangle Baldwin-Weber test, counted from mt.cuh bw_hit: den 5,
+# num 6, the reciprocal 1, t 1, the hit point 6, u 6, v 6 multiply/add
+# operations, then |den| and 7 compares (u + v's add among them).
+BW_FLOPS = 39
 SLAB_FLOPS = 25    # one ray x box slab test (6 sub, 6 mul, 10 min/max, 3 compares)
 # The walks of phases 3c-5c, as RenderConfig fields.
 WALKS = {"skip": dict(algo="skip"), "stack": dict(algo="stack"),
          "binary": dict(use_wide=False)}
 XF_FLOPS = 33      # one ray into one instance's object space (origin + dir)
+# Phase 3e: the entry points beyond phase 3's pair, and round A's rows
+# before a carry-in call (bits2's default refine_rows).
+VARIANTS = [k for k in leaf_rows.ENTRY_POINTS if k not in ("leaf_rows_closest", "leaf_rows_any")]
+CARRY_ROWS = bits.BITS_REFINE_ROWS
+# Phase 4e: the bits algos timed at full depth, those whose image is
+# expected bit-equal to bitsru8's up to exact-t ties, and the 1 spp frames
+# that drive the remaining carry-in entry points.  Phase 5e: kernel vs plain.
+BITS_ALGOS = ("bits", "bitsi", "bitsw", "bitswi", "bits2", "bits8", "bitsh", "bitsa", "bitsp")
+EXACT_ALGOS = ("bits", "bitsi", "bits2", "bits8", "bitsa", "bitsp", "bits2i")
+# The algos whose record test rounds otherwise than bitsru8's (Baldwin-Weber,
+# bf16): a path whose hit moves takes other random numbers from then on, so
+# their pixels depart from bitsru8's beyond phase 4d's pixel gate, as the JAX
+# package's own renders of the same algos depart from its bitsru8 render
+# (PERF.md, section 6).  4e holds their energy, relative to bitsru8's, to a
+# band: Baldwin-Weber to phase 4's 1%, bf16 to -40% .. -30% around the
+# departure of the JAX package's bitsh on a TPU (-34%) and on the CPU; 3e
+# and 5e hold them to their plain versions, and the CPU tests
+# (tests/test_torch_bits_render.py) to the JAX package's same algo.
+ROUNDING_ALGOS = ("bitsw", "bitswi", "bitsh", "bits2w", "bits2wi", "bits2h")
+ENERGY_BAND = {"bw": (-0.01, 0.01), "bf16": (-0.40, -0.30)}
+CARRY_ALGOS = ("bits2w", "bits2i", "bits2h", "bits2wi")
+PARITY_ALGOS = ("bitsw", "bitsh", "bits2", "bitsp")
 
 
 def say(msg: str) -> None:
@@ -187,10 +239,12 @@ def _compare(got, want):
     return bit, err, gate
 
 
-def _bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(bound ms, what bounds it): the larger of the operations over the FP32
-    peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops: float, nbytes: float, bf16_flops: float = 0.0) -> tuple[float, str]:
+    """(bound ms, what bounds it): the larger of the operations over the
+    peak for their type (``flops`` f32, ``bf16_flops`` bf16) and the bytes
+    over the memory rate."""
+    t_ops = flops / PEAK_FLOPS["f32"] + bf16_flops / PEAK_FLOPS["bf16"]
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -452,7 +506,7 @@ def phase_bench(dev: torch.device, w: int = W, h: int = H, spp: int = SPP) -> di
     _sync(dev)
     leaf_rows.reset_launches()
     times, img = _timed_frames(scene, cfg, cam, dev, spp, 2)
-    launches = dict(leaf_rows.LAUNCHES)
+    launches = {k: leaf_rows.LAUNCHES[k] for k in ("leaf_rows_closest", "leaf_rows_any")}
     energy = _check_image(img, "bench", spp)
     for name, k in launches.items():
         if k <= 0 and dev.type == "cuda":
@@ -467,14 +521,20 @@ def phase_bench(dev: torch.device, w: int = W, h: int = H, spp: int = SPP) -> di
     return launches, img
 
 
-def _pixel_gate(ref, img, what: str) -> str:
-    """tests/test_render_parity.py's gate: under 1% of pixels off by more
-    than 1e-3, energy within 1%."""
+def _pixel_stats(ref, img):
+    """(pixels off by more than 1e-3, relative energy difference, message)."""
     a, b = ref.cpu().numpy(), img.cpu().numpy()
     off = float((np.abs(a - b).max(axis=2) > 1e-3).mean())
     rel_e = abs(float(b.sum()) - float(a.sum())) / abs(float(a.sum()))
     msg = (f"energy rel {rel_e:.3g}, pixels off by >1e-3 {off:.4%}, "
            f"bit-identical {bool(np.array_equal(a, b))}")
+    return off, rel_e, msg
+
+
+def _pixel_gate(ref, img, what: str) -> str:
+    """tests/test_render_parity.py's gate: under 1% of pixels off by more
+    than 1e-3, energy within 1%."""
+    off, rel_e, msg = _pixel_stats(ref, img)
     if not (off < 0.01 and rel_e < 0.01):
         raise AssertionError(f"{what}: {msg}")
     return msg
@@ -547,12 +607,14 @@ def phase_twolevelp_bench(dev: torch.device, w: int = W, h: int = H, spp: int = 
         f"{['%.3f' % t for t in f_times]} s, mean {f_dt:.3f} s, "
         f"{w * h * spp / f_dt:.1f} rays/s, energy {f_energy!r} "
         f"(twolevelp rel diff {(energy - f_energy) / f_energy:+.4%})")
+    bitsru8_reads = fs._replace(trace=fs.trace._replace(ltabw=None), stream=None, binary=None)
     say(f"[4b twolevelp] device bytes: pure {_scene_bytes(ps)} "
         f"(tables {_nbytes(ps.inst.ltab, ps.inst.box_lo, ps.inst.box_hi)}), "
-        f"flattened, what bitsru8 reads {_scene_bytes(fs._replace(stream=None, binary=None))} "
+        f"flattened, what bitsru8 reads {_scene_bytes(bitsru8_reads)} "
         f"(tables {_nbytes(fs.trace.ltab, fs.trace.box_lo, fs.trace.box_hi)}); the flattened "
         f"scene's stream {_scene_bytes(fs.stream)} and binary walk tables "
-        f"{_scene_bytes(fs.binary)}, read by the walks only")
+        f"{_scene_bytes(fs.binary)}, read by the walks only, and its Baldwin-Weber "
+        f"table {_nbytes(fs.trace.ltabw)}, read by the w algos only")
     return launches
 
 
@@ -664,9 +726,189 @@ def phase_walk_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
             f"(plain render {time.perf_counter() - t0:.1f} s)")
 
 
+def _bits_kw(name: str) -> dict:
+    """leaf_rows keyword arguments of an entry point (carry aside)."""
+    record, merge, precision, _, _ = leaf_rows.ENTRY_POINTS[name]
+    return dict(record=record, merge=merge, precision=precision)
+
+
+def phase_variants(dev: torch.device, w: int = W, h: int = H) -> dict:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    primary, bounce = _first_wave(scene, cfg, cam, dev, w, h)
+    tr = scene.trace
+    out = {name: {"max_abs_err": 0.0} for name in VARIANTS}
+    for label, (o, d, act, tm, any_hit, cap) in _ray_sets(primary, bounce, w * h, dev,
+                                                          8.0, 8).items():
+        rays, lists, n_rows = bits.prepare(tr, o, d, tm, act, BLOCK, cap)
+        live = _active_per_packet(act, lists.shape[0], BLOCK)
+        for name in VARIANTS:
+            kw = _bits_kw(name)
+            table = tr.ltabw if kw["record"] == "bw" else tr.ltab
+            l, nr, carry, k = lists, n_rows, None, 0
+            if leaf_rows.ENTRY_POINTS[name][3]:
+                k = min(CARRY_ROWS, lists.shape[1] // 2)
+                n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=k)).to(torch.int32)
+                carry = leaf_rows.leaf_rows(table, lists, n_a, rays, BLOCK, **kw)
+                l = lists[:, k:].contiguous()
+                nr = torch.where(n_rows < 0, 0, (n_rows - k).clamp(min=0)).to(torch.int32)
+            args = (table, l, nr, rays, BLOCK)
+            got = leaf_rows.leaf_rows(*args, carry=carry, **kw)
+            want, p_ms = _time_once(lambda: leaf_rows.leaf_rows_plain(*args, carry=carry, **kw),
+                                    dev)
+            bit, err, _ = _compare(got, want)
+            if not bit:
+                raise AssertionError(f"{name} {label}: kernel differs from its plain version "
+                                     f"(max |dt| {err})")
+            if carry is not None:
+                whole = leaf_rows.leaf_rows(table, lists, n_rows, rays, BLOCK, **kw)
+                if not all(torch.equal(x, y) for x, y in zip(got, whole)):
+                    raise AssertionError(f"{name} {label}: round A + carry-in differs from "
+                                         f"one call over the whole lists")
+            k_ms = _time_ms(lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw), 10, dev)
+            rows = torch.where(nr < 0, table.shape[0], nr)
+            tests = float((rows * live).sum()) * 8
+            f32_ops, bf16_ops = {("bw", "f32"): (BW_FLOPS, 0),
+                                 ("mt", "f32"): (MT_FLOPS, 0),
+                                 ("mt", "bf16"): (MT_FLOPS - MT_BF16_FLOPS, MT_BF16_FLOPS)}[
+                                     kw["record"], kw["precision"]]
+            nbytes = _nbytes(*args[:4]) + 16 * rays.shape[1] * (2 if carry else 1)
+            bound_ms, bound_by = _bound(tests * f32_ops, nbytes, tests * bf16_ops)
+            resumed = f", resumed after round A's first {k} rows" if carry is not None else ""
+            say(f"[3e variants] {name} {label}: bit-identical, kernel {k_ms:.3f} ms, "
+                f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests:.4g} "
+                f"tests{resumed})")
+            if label == "bounce/closest":
+                out[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def _entry_points_of(algo: str) -> list[str]:
+    """The leaf-row entry points a frame of ``algo`` must launch (bitsp's
+    fallback launches only when some ray overflows its list)."""
+    f = bits.parse_algo(algo)
+    if f.pairs:
+        return []
+    names = {leaf_rows.entry_point(**f.kernel())}
+    if f.refine:
+        names.add(leaf_rows.entry_point(**f.kernel(), carry=True))
+    if f.trims():
+        names.add("leaf_rows_any")
+    return sorted(names)
+
+
+def _tie_gate(ref, img, what: str) -> str:
+    """Images expected equal but for exact-t ties taken in another order:
+    under 0.1% of pixels differ, and phase 4d's gates."""
+    a, b = ref.cpu().numpy(), img.cpu().numpy()
+    diff = float((a != b).any(axis=2).mean())
+    if not diff < 0.001:
+        raise AssertionError(f"{what}: {diff:.4%} of pixels differ (over 0.1%)")
+    return f"pixels differing {diff:.4%}; {_pixel_gate(ref, img, what)}"
+
+
+def _rounding_gate(ref, img, algo: str, what: str) -> str:
+    """The energy of a rounding algo's image relative to bitsru8's, within
+    its record test's ENERGY_BAND; the pixels' distance is printed."""
+    lo, hi = ENERGY_BAND["bf16" if bits.parse_algo(algo).bf16 else "bw"]
+    e_ref = float(ref.sum())
+    rel = (float(img.sum()) - e_ref) / e_ref
+    msg = f"energy {rel:+.4%} (band {lo:+.0%} .. {hi:+.0%}); {_pixel_stats(ref, img)[2]}"
+    if not lo <= rel <= hi:
+        raise AssertionError(f"{what}: {msg}")
+    return msg
+
+
+def _bits_gate(ref, img, algo: str, what: str) -> str:
+    if algo in EXACT_ALGOS:
+        return _tie_gate(ref, img, what)
+    if algo in ROUNDING_ALGOS:
+        return _rounding_gate(ref, img, algo, what)
+    return _pixel_gate(ref, img, what)
+
+
+def _bits_frame(scene, cam, dev, algo, w, h, spp, total):
+    """One frame of ``algo`` with the launch counts reset just before it and
+    read just after: (image, seconds, launches, peak GiB)."""
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS, algo=algo)
+    _render(scene, cfg, cam, dev, 0, 1)  # warm-up
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    leaf_rows.reset_launches()
+    t0 = time.perf_counter()
+    img = _render(scene, cfg, cam, dev, total, spp)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in leaf_rows.LAUNCHES.items() if v}
+    for name in _entry_points_of(algo):
+        if launches.get(name, 0) <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched by the {algo} render")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    return img, dt, launches, peak
+
+
+def phase_bits_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
+                     spp: int = SPP) -> dict:
+    """The bench config through each bits algo: one frame at phase 4's
+    second frame's seeds (total_samples 2 * spp), held to its image; then
+    1 spp frames of the carry-in algos, held to a 1 spp bitsru8 frame.
+    Returns each new entry point's launches in the first frame that drives
+    it (the full-spp frame where there is one)."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    launches, source = {}, {}
+    for algo in BITS_ALGOS:
+        img, dt, counts, peak = _bits_frame(scene, cam, dev, algo, w, h, spp, 2 * spp)
+        energy = _check_image(img, f"{algo} bench", spp)
+        gate = _bits_gate(ref_img, img, algo, f"{algo} bench frame")
+        for k, v in counts.items():
+            if k not in launches:
+                launches[k], source[k] = v, f"{algo} @ {spp} spp"
+        say(f"[4e bits] {algo}: {w}x{h} @ {spp} spp, frame {dt:.3f} s, "
+            f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {counts}, "
+            f"peak memory {peak:.2f} GiB; vs bitsru8: {gate}")
+    ref1, _, _, _ = _bits_frame(scene, cam, dev, "bitsru8", w, h, 1, 2 * spp)
+    for algo in CARRY_ALGOS:
+        img, dt, counts, peak = _bits_frame(scene, cam, dev, algo, w, h, 1, 2 * spp)
+        energy = _check_image(img, f"{algo} frame", 1)
+        gate = _bits_gate(ref1, img, algo, f"{algo} 1 spp frame")
+        for k, v in counts.items():
+            if k not in launches:
+                launches[k], source[k] = v, f"{algo} @ 1 spp"
+        say(f"[4e bits] {algo}: {w}x{h} @ 1 spp, frame {dt:.3f} s, energy {energy!r} "
+            f"(bitsru8 {float(ref1.sum())!r}), launches {counts}; vs bitsru8: {gate}")
+    mine = {k: launches[k] for k in VARIANTS if k in launches}
+    say("[4e bits] launches for the kernels line: "
+        + ", ".join(f"{k} {v} ({source[k]})" for k, v in mine.items()))
+    return mine
+
+
+def phase_bits_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    for algo in PARITY_ALGOS:
+        cfg = wi.RenderConfig.for_scene(scene, w, h, 2, use_defocus=True)._replace(
+            **BENCH_KNOBS, algo=algo)
+        img_k = _render(scene, cfg, cam, dev, 0, 1)
+        t0 = time.perf_counter()
+        with mock.patch.object(bits, "leaf_rows", leaf_rows.leaf_rows_plain):
+            img_p = _render(scene, cfg, cam, dev, 0, 1)
+        _sync(dev)
+        msg = _parity(img_k, img_p, f"{algo} kernel render", 0.01, 0.03)
+        if not torch.equal(img_k, img_p):
+            raise AssertionError(f"{algo}: kernel and plain renders differ ({msg})")
+        say(f"[5e parity] {algo} {w}x{h} @ 2 spp, kernel vs plain: {msg} "
+            f"(plain render {time.perf_counter() - t0:.1f} s)")
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
+    **{name: ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287")
+       for name in VARIANTS},
     "inst_rows_closest": ("surf_tpu_torch/csrc/inst_rows.cu",
                           "surf_tpu/accel/pallas_instanced.py:260"),
     "inst_rows_any": ("surf_tpu_torch/csrc/inst_rows.cu",
@@ -679,24 +921,35 @@ KERNELS = {
 }
 
 
+def timed(label: str, fn, *args):
+    """Runs one phase and prints its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"[{label}] phase took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     dev = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_build()
-    kernels = phase_kernel(dev)
-    kernels.update(phase_inst_kernel(dev))
-    kernels.update(phase_stream_kernel(dev))
-    kernels.update(phase_bvh_kernel(dev))
-    launches, bench_img = phase_bench(dev)
-    launches.update(phase_twolevelp_bench(dev))
-    launches.update(phase_walk_bench(dev, bench_img))
-    for name, err in phase_capacity(dev).items():
+    timed("2 build", phase_build)
+    kernels = timed("3 kernel", phase_kernel, dev)
+    kernels.update(timed("3b inst", phase_inst_kernel, dev))
+    kernels.update(timed("3c stream", phase_stream_kernel, dev))
+    kernels.update(timed("3d binary", phase_bvh_kernel, dev))
+    kernels.update(timed("3e variants", phase_variants, dev))
+    launches, bench_img = timed("4 bench", phase_bench, dev)
+    launches.update(timed("4b twolevelp", phase_twolevelp_bench, dev))
+    launches.update(timed("4d walks", phase_walk_bench, dev, bench_img))
+    launches.update(timed("4e bits", phase_bits_bench, dev, bench_img))
+    for name, err in timed("4c capacity", phase_capacity, dev).items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
-    phase_parity(dev)
-    phase_twolevelp_parity(dev)
-    phase_walk_parity(dev)
+    timed("5 parity", phase_parity, dev)
+    timed("5b parity", phase_twolevelp_parity, dev)
+    timed("5c parity", phase_walk_parity, dev)
+    timed("5e parity", phase_bits_parity, dev)
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

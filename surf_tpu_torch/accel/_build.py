@@ -92,11 +92,13 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name in ("leaf_rows_closest", "leaf_rows_any"):
+        from .leaf_rows import ENTRY_POINTS
+
+        for name in ENTRY_POINTS:
             fn = getattr(lib, name)
             # table, table_rows, lists, cap, n_rows, rays, n_rays,
-            # block_rays, t, r, u, v, stream
-            fn.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p]
+            # block_rays, t_in, r_in, u_in, v_in, t, r, u, v, stream
+            fn.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p, p, p, p, p]
             fn.restype = i
         for name in ("inst_rows_closest", "inst_rows_any"):
             fn = getattr(lib, name)

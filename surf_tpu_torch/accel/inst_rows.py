@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 from . import _build
-from .leaf_rows import PLAIN_PAIRS, TRIS, mt_chunk
+from .leaf_rows import PLAIN_PAIRS, TRIS, rows_chunk
 
 # Kernel launches since the last reset, per entry point of inst_rows.cu.
 LAUNCHES = {"inst_rows_closest": 0, "inst_rows_any": 0}
@@ -136,7 +136,7 @@ def inst_rows_plain(table: torch.Tensor, lists: torch.Tensor,
 
     Instances are taken in ascending order, each over the packets that list
     it; within an instance, rows a chunk of list positions at a time
-    (PLAIN_PAIRS bounds the pairs per op, ``leaf_rows.mt_chunk`` picks each
+    (PLAIN_PAIRS bounds the pairs per op, ``leaf_rows.rows_chunk`` picks each
     chunk's winner).  Loop bounds are read on the host."""
     g = lists.shape[0]
     R = block_rays
@@ -170,8 +170,8 @@ def inst_rows_plain(table: torch.Tensor, lists: torch.Tensor,
         for k0 in range(0, width, chunk_rows):
             rows = table[ids[:, k0:k0 + chunk_rows]]            # [P, K, 128]
             live = pos[k0:k0 + rows.shape[1]][None, :] < count[:, None]
-            best, upd = mt_chunk(rows, live, oi[:, :, :, None], di[:, :, :, None],
-                                 best, any_hit)
+            best, upd = rows_chunk(rows, live, oi[:, :, :, None], di[:, :, :, None],
+                                   best, any_hit)
             bi = torch.where(upd, i, bi)
         best_t[pk], best_r[pk], best_u[pk], best_v[pk] = best
         best_i[pk] = bi

@@ -9,6 +9,8 @@ record's leaf-order triangle slot as int32 bits in lane 9 (-1 for
 padding).  Zero records fail the Möller–Trumbore |det| >= eps test, so no
 count field is needed.  Over the rows sits an arithmetic 8-ary box
 hierarchy: each level boxes 8 consecutive entries of the level below.
+Beside it, ``tablew`` holds the same triangles as Baldwin–Weber records
+(``algo="bitsw"``), row for row.
 
 Stream.  The binary SAH BVH collapsed into a branching-factor-8 tree and
 flattened into one DFS-preorder table of 128-lane rows of two kinds:
@@ -47,6 +49,14 @@ class LeafTable(NamedTuple):
     box_hi: np.ndarray    # [E, 3]
     anc: np.ndarray       # [n_rows, MAXD] int32 (self, parent, ..., root)
     n_rows: int           # real leaf rows
+    # Baldwin–Weber records, same rows and record slots: per 16-lane record
+    #   [nx ny nz d0  a1x a1y a1z a1w  a2x a2y a2z a2w  slot 0 0 0]
+    # with n = e1 x e2 (unnormalised), d0 = n.v0, and the affine
+    # barycentric rows u = a1.p + a1w, v = a2.p + a2w of a point p on the
+    # triangle's plane.  n.d is the Möller–Trumbore determinant up to sign,
+    # so |n.d| >= eps is MT's |det| gate.  Padding records are all zero:
+    # n.d = 0 fails the gate.
+    tablew: np.ndarray    # [n_pad, 128] f32
 
 
 def _fill_leaf_rows(table, rec_slot, tv0, tv1, tv2):
@@ -60,6 +70,48 @@ def _fill_leaf_rows(table, rec_slot, tv0, tv1, tv2):
         table[rows_idx, lane0 + 0 + c] = tv0[slots, c]
         table[rows_idx, lane0 + 3 + c] = tv1[slots, c] - tv0[slots, c]
         table[rows_idx, lane0 + 6 + c] = tv2[slots, c] - tv0[slots, c]
+
+
+def _fill_bw_rows(table, rec, tv0, tv1, tv2):
+    """Vectorised in-place write of the Baldwin–Weber records (see
+    LeafTable.tablew).  The coefficients are derived in float64 and stored
+    as f32; the projection axis k is the normal's dominant axis, with
+    (i, j, k) cyclic, so the 2-D determinant is exactly n_k."""
+    valid = rec >= 0
+    pos = np.nonzero(valid)[0]
+    ridx = pos // LEAF_TRIS
+    lane0 = (pos % LEAF_TRIS) * REC
+    slots = rec[valid]
+    v0 = tv0[slots].astype(np.float64)
+    e1 = (tv1[slots] - tv0[slots]).astype(np.float64)
+    e2 = (tv2[slots] - tv0[slots]).astype(np.float64)
+    n = np.cross(e1, e2)
+    k = np.argmax(np.abs(n), axis=1)
+    i_ = (k + 1) % 3
+    j_ = (k + 2) % 3
+    r = np.arange(len(slots))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = 1.0 / n[r, k]
+    a1 = np.zeros((len(slots), 3))
+    a2 = np.zeros((len(slots), 3))
+    a1[r, i_] = e2[r, j_] * inv
+    a1[r, j_] = -e2[r, i_] * inv
+    a1w = (e2[r, i_] * v0[r, j_] - e2[r, j_] * v0[r, i_]) * inv
+    a2[r, i_] = -e1[r, j_] * inv
+    a2[r, j_] = e1[r, i_] * inv
+    a2w = (e1[r, j_] * v0[r, i_] - e1[r, i_] * v0[r, j_]) * inv
+    d0 = np.einsum("ij,ij->i", n, v0)
+    cols = [n[:, 0], n[:, 1], n[:, 2], d0,
+            a1[:, 0], a1[:, 1], a1[:, 2], a1w,
+            a2[:, 0], a2[:, 1], a2[:, 2], a2w]
+    for c, col in enumerate(cols):
+        # A degenerate triangle (n = 0) gets inf or NaN coefficients; its
+        # n.d = 0 fails the |den| >= eps gate, as MT's |det| gate rejects it.
+        table[ridx, lane0 + c] = col.astype(np.float32)
+    table[ridx, lane0 + BW_SLOT_LANE] = slots.astype(np.int32).view(np.float32)
+
+
+BW_SLOT_LANE = 12  # slot-id lane of a Baldwin–Weber record
 
 
 def build_leaf_table(tv0, tv1, tv2) -> LeafTable:
@@ -85,6 +137,8 @@ def build_leaf_table(tv0, tv1, tv2) -> LeafTable:
     for j in range(LEAF_TRIS):
         table[:, REC * j + 9] = np.ascontiguousarray(
             rec2d[:, j]).view(np.float32)
+    tablew = np.zeros((n_pad, LANE), np.float32)
+    _fill_bw_rows(tablew, rec, tv0, tv1, tv2)
 
     tlo, thi = triangle_bounds(tv0, tv1, tv2)
     lo0 = np.full((n0, 3), np.inf, np.float32)
@@ -112,7 +166,7 @@ def build_leaf_table(tv0, tv1, tv2) -> LeafTable:
     anc = np.empty((n0, maxd), np.int32)
     for k in range(maxd):
         anc[:, k] = offs[k] + r // (8 ** k)
-    return LeafTable(table, rec, box_lo, box_hi, anc, n0)
+    return LeafTable(table, rec, box_lo, box_hi, anc, n0, tablew)
 
 
 class WideStream(NamedTuple):

@@ -3,6 +3,7 @@
 
     python -m surf_tpu_torch.breakdown --scene stress --algo twolevelp
     python -m surf_tpu_torch.breakdown --scene indoor --algo bitsru8
+    python -m surf_tpu_torch.breakdown --scene indoor --algo bitsw   # any bits* algo
     python -m surf_tpu_torch.breakdown --scene indoor --algo skip    # or stack
     python -m surf_tpu_torch.breakdown --scene indoor --algo binary  # use_wide=False
 
@@ -30,7 +31,7 @@ from unittest import mock
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from .accel import bits, bvh_walk, instanced, stream
+from .accel import bits, bvh_walk, instanced, pairs, stream
 from .core import sampling
 from .scene import builtin
 from .scene.camera import CameraParams
@@ -51,7 +52,11 @@ OWN_KERNELS = {"leaf_rows_kernel": "leaf_rows kernel",
 LAYERS = (
     (wi, "ray_generation", "raygen"),
     (wi, "compact_paths", "compaction"),
-    (bits, "prepare", "bitsru8 phases 1/1.5"),
+    (bits, "packet_vis", "bits phases 1/1.5"),
+    (bits, "row_lists", "bits phases 1/1.5"),
+    (bits, "group_any", "bits phases 1/1.5"),
+    (bits, "group_lists", "bits phases 1/1.5"),
+    (pairs, "pair_hits", "bitsp pair lists"),
     (bits, "leaf_rows", "leaf_rows kernel"),
     (instanced, "prepare", "twolevelp phases 0/1"),
     (instanced, "inst_rows", "inst_rows kernel"),
@@ -82,11 +87,20 @@ def _union_us(intervals) -> float:
     return total
 
 
+def _algo(name: str) -> str:
+    if name != "binary" and not wi.is_ported(name):
+        raise argparse.ArgumentTypeError(
+            f"{name!r} is not an algo render_frame_seeded renders ({wi.ALGOS}, "
+            f"a bits* string of traverse_wide, or binary)")
+    return name
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("indoor", "stress"), default="stress")
-    ap.add_argument("--algo", choices=(*wi.ALGOS, "binary"), default="twolevelp",
-                    help="a RenderConfig algo, or binary: the binary walk (use_wide=False)")
+    ap.add_argument("--algo", type=_algo, default="twolevelp",
+                    help="a RenderConfig algo (twolevelp, skip, stack or any bits* "
+                         "string), or binary: the binary walk (use_wide=False)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("breakdown: no CUDA device")

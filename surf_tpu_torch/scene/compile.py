@@ -7,7 +7,8 @@ Two compiles, ports of the two branches of
   pre-transformed to world space and one SAH BVH is built over all world
   triangles (``accel.builder.build_blas`` with min_leaf=4, max_leaf=8).
   The one tree feeds three layouts, one per traversal: the dense leaf
-  table of ``bitsru8`` (``accel.wide.build_leaf_table``), the 8-wide DFS
+  table of the ``bits*`` algos (``accel.wide.build_leaf_table``, with its
+  Baldwin–Weber twin for ``bitsw``), the 8-wide DFS
   stream of ``skip`` / ``stack`` (``accel.wide.build_wide_stream``) and
   the skip-link node list of the binary walk (``accel.skiplinks``).  The
   stream and node list are padded to JAX's capacity classes;
@@ -48,7 +49,7 @@ class TorchScene(NamedTuple):
     render reads).  Leaf-order arrays are indexed by traversal slot;
     ``samp_*`` are in the original instance-contiguous order."""
 
-    trace: LeafTrace               # bitsru8
+    trace: LeafTrace               # the bits* algos
     stream: StreamTrace            # skip / stack
     binary: BinaryTrace            # the binary walk (use_wide=False)
     perm: torch.Tensor             # [T] int32 leaf slot -> original tri id
@@ -117,8 +118,9 @@ class PureScene(NamedTuple):
 
 
 # TorchScene field (or LeafTrace field) -> RenderScene / TraceArrays leaf.
-_TRACE_KEYS = {"ltab": "wide_ltab", "box_lo": "wide_box_lo",
-               "box_hi": "wide_box_hi", "anc": "wide_anc"}
+_TRACE_KEYS = {"ltab": "wide_ltab", "ltabw": "wide_ltabw",
+               "box_lo": "wide_box_lo", "box_hi": "wide_box_hi",
+               "anc": "wide_anc"}
 # InstancedTrace field -> pure RenderScene TraceArrays leaf.
 _INST_KEYS = {"ltab": "inst_ltab", "box_lo": "inst_box_lo",
               "box_hi": "inst_box_hi", "inv": "inst_inv",
@@ -205,6 +207,7 @@ def scene_arrays(scene: Scene) -> dict[str, np.ndarray]:
         "nodes_packed": nodes_packed,
         "tris_packed": tris_packed,
         "wide_ltab": lt.table,
+        "wide_ltabw": lt.tablew,
         "wide_box_lo": lt.box_lo.T.copy(),
         "wide_box_hi": lt.box_hi.T.copy(),
         "wide_anc": lt.anc,
@@ -261,7 +264,7 @@ def from_render_scene(arrays: dict[str, np.ndarray], device: torch.device,
     """Build a scene on ``device`` from RenderScene leaves given as NumPy
     arrays, keyed by their JAX names; extra keys are ignored.  Without
     ``inst_meta`` the leaves are the flattened compile's (plus the
-    TraceArrays names ``wide_ltab``, ``wide_box_lo``, ``wide_box_hi``,
+    TraceArrays names ``wide_ltab``, ``wide_ltabw``, ``wide_box_lo``, ``wide_box_hi``,
     ``wide_anc``, ``wide_stream``, ``wide_rec_slot``, ``node_boxes``,
     ``nodes_packed``, ``tris_packed``) and the result is a TorchScene; the
     stream's depth is read from the stream.  With ``inst_meta`` (the

@@ -1,7 +1,8 @@
 """The wavefront path-tracing integrator (port of
 ``surf_tpu.wavefront.integrator``, forward path).  A flattened
-``TorchScene`` is traversed by ``algo="bitsru8"``, ``"skip"`` or
-``"stack"``, or with ``use_wide=False`` by the binary packet walk; a pure
+``TorchScene`` is traversed by a ``bits*`` algo (``"bitsru8"`` by default),
+``"skip"`` or ``"stack"``, or with ``use_wide=False`` by the binary packet
+walk; a pure
 two-level ``PureScene`` by ``algo="twolevelp"``, whose shading re-derives
 world geometry per lane from the shared object-space meshes and the hit
 instance's forward transform.
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..accel.bits import Hit, traverse_bits
+from ..accel.bits import Hit, parse_algo, traverse_bits
 from ..accel.bvh_walk import traverse_binary
 from ..accel.instanced import traverse_instanced
 from ..accel.stream import traverse_stream
@@ -45,12 +46,26 @@ from ..core.vecmath import (
 from ..scene.camera import CameraParams, ViewPlane, view_plane
 from ..scene.compile import PureScene, TorchScene
 
-ALGOS = ("bitsru8", "skip", "stack", "twolevelp")
+# The ported algos besides the bits* family, whose every string that
+# JAX's traverse_wide accepts renders (accel.bits.parse_algo).
+ALGOS = ("skip", "stack", "twolevelp")
 # bench.py's render knobs (wave cap, packet size, compaction, width ladder,
 # lane order), applied with RenderConfig._replace(**BENCH_KNOBS).
 BENCH_KNOBS = dict(wave_limit=32, block_rays=2048, compact=True,
                    compact_every=16, ladder=6, ladder_shrink=2,
                    pixel_order="morton")
+
+
+def is_ported(algo: str) -> bool:
+    """True for an algo the port renders: one of ALGOS or a valid bits*
+    string."""
+    if algo in ALGOS:
+        return True
+    try:
+        parse_algo(algo)
+    except ValueError:
+        return False
+    return True
 
 
 def algo_of(scene: TorchScene | PureScene) -> str:
@@ -63,9 +78,10 @@ class RenderConfig(NamedTuple):
     """Render configuration: the fields of ``surf_tpu``'s RenderConfig that
     the forward path reads, with the same names and defaults.  ``algo``
     names the traversal, with JAX's precedence: "twolevelp" (the only one
-    of a PureScene) goes to the instanced walk; else ``use_wide`` picks
-    "bitsru8", "skip" or "stack" over the 8-wide layouts, and
-    ``use_wide=False`` the binary packet walk.  ``for_scene`` picks
+    of a PureScene) goes to the instanced walk; else ``use_wide`` picks a
+    ``bits*`` algo, "skip" or "stack" over the 8-wide layouts, and
+    ``use_wide=False`` the binary packet walk.  ``cap_rows`` and
+    ``pair_groups`` size the bits lists (0: BITS_CAP_ROWS, PAIR_GROUPS).  ``for_scene`` picks
     "bitsru8" or "twolevelp" by the scene's type (``algo_of``), and
     ``render_frame_seeded`` raises on an algo that is not ported or does
     not fit the scene.  The wave loop always runs until every path has
@@ -84,8 +100,10 @@ class RenderConfig(NamedTuple):
     ladder: int = 0              # width-ladder rungs (0 = off)
     ladder_shrink: int = 4       # width divisor per rung
     pixel_order: str = "native"  # lane -> pixel map: "native" or "morton"
-    algo: str = "bitsru8"        # traversal, one of ALGOS
+    algo: str = "bitsru8"        # traversal: a bits* string or one of ALGOS
     use_wide: bool = True        # False: the binary walk (unless twolevelp)
+    cap_rows: int = 0            # bits list capacity (0 = BITS_CAP_ROWS)
+    pair_groups: int = 0         # bitsp per-ray groups (0 = PAIR_GROUPS)
 
     @classmethod
     def for_scene(cls, scene: TorchScene | PureScene, width: int, height: int,
@@ -170,9 +188,10 @@ def _traverse(scene: TorchScene | PureScene, cfg: RenderConfig, origin,
     if not isinstance(scene, PureScene):
         if not cfg.use_wide:
             return traverse_binary(scene.binary, *args, any_hit=any_hit), None
-        if cfg.algo == "bitsru8":
+        if cfg.algo.startswith("bits"):
             return traverse_bits(scene.trace, *args, any_hit=any_hit,
-                                 block_rays=cfg.block_rays), None
+                                 block_rays=cfg.block_rays, cap_rows=cfg.cap_rows,
+                                 algo=cfg.algo, pair_groups=cfg.pair_groups), None
         return traverse_stream(scene.stream, *args, any_hit=any_hit,
                                block_rays=cfg.block_rays, algo=cfg.algo), None
     h = traverse_instanced(scene.inst, origin, direction, t_max, active,
@@ -563,10 +582,11 @@ def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
     ``seed0``; returns (radiance sums [H, W, 3], final seeds).  Chunking a
     large spp budget into several calls gives the same image as one call."""
     pure = isinstance(scene, PureScene)
-    if cfg.algo not in ALGOS or pure != (cfg.algo == "twolevelp"):
-        fits = "twolevelp" if pure else "bitsru8, skip, stack or use_wide=False"
+    if not is_ported(cfg.algo) or pure != (cfg.algo == "twolevelp"):
+        fits = "twolevelp" if pure else "bits*, skip, stack or use_wide=False"
         raise ValueError(f"algo={cfg.algo!r} does not render a {type(scene).__name__} "
-                         f"(it renders with {fits}; the ported algos are {ALGOS})")
+                         f"(it renders with {fits}; the ported algos are {ALGOS} and "
+                         f"every bits* string of traverse_wide)")
     vp = view_plane(cam, cfg.width, cfg.height)
     n = cfg.width * cfg.height
     dev = seed0.device

@@ -1,5 +1,6 @@
-"""The hand-written kernels (leaf rows, instanced leaf rows, the stream
-walks, the binary walk) against their plain PyTorch versions, on the card.
+"""The hand-written kernels (leaf rows with every entry point, instanced leaf
+rows, the stream walks, the binary walk) against their plain PyTorch
+versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -18,7 +19,7 @@ import torch
 
 from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
-from surf_tpu_torch.accel.leaf_rows import (LAUNCHES, leaf_rows,
+from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
@@ -91,6 +92,89 @@ def test_render_through_kernel_matches_plain(indoor, cuda):
     img_k, seed_k = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
     torch.cuda.synchronize()
     assert LAUNCHES["leaf_rows_closest"] > 0 and LAUNCHES["leaf_rows_any"] > 0
+    with mock.patch.object(bits, "leaf_rows", leaf_rows_plain):
+        img_p, seed_p = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
+    assert torch.isfinite(img_k).all() and (img_k >= 0).all()
+    assert torch.equal(img_k, img_p)
+    assert torch.equal(seed_k, seed_p)
+
+
+# The entry points of leaf_rows.cu beyond the f32 sequential MT pair.
+VARIANTS = [k for k in ENTRY_POINTS if k not in ("leaf_rows_closest", "leaf_rows_any")]
+CARRY_ROWS = 16  # round A's rows before a carry-in call
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "sweep"])
+@pytest.mark.parametrize("name", VARIANTS)
+def test_variant_matches_plain_bit_exact(indoor, cuda, name, mode):
+    """Each further entry point against its plain version on random rays,
+    bit for bit.  A carry-in entry point resumes from a first call over
+    each list's first CARRY_ROWS rows (the sweeps all in that call) over
+    the rest of the list, and then also equals the one-call result."""
+    record, merge, precision, carry, _ = ENTRY_POINTS[name]
+    o, d, act = _rays(3 * 2048, seed=4, device=cuda)
+    tmax = torch.full((o.shape[0],), 6.0 if mode == "any_hit" else 1e30, device=cuda)
+    rays, lists, n_rows = bits.prepare(indoor.trace, o, d, tmax, act, 2048,
+                                       cap_rows=8 if mode == "sweep" else 0)
+    table = indoor.trace.ltabw if record == "bw" else indoor.trace.ltab
+    kw = dict(record=record, merge=merge, precision=precision)
+    whole = leaf_rows(table, lists, n_rows, rays, 2048, **kw) if carry else None
+    c = None
+    if carry:
+        k = CARRY_ROWS
+        n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=k)).to(torch.int32)
+        c = leaf_rows(table, lists, n_a, rays, 2048, **kw)
+        lists = lists[:, k:].contiguous()
+        n_rows = torch.where(n_rows < 0, 0, (n_rows - k).clamp(min=0)).to(torch.int32)
+    reset_launches()
+    got = leaf_rows(table, lists, n_rows, rays, 2048, carry=c, **kw)
+    want = leaf_rows_plain(table, lists, n_rows, rays, 2048, carry=c, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if carry:
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w)
+    assert (got[1][2048:4096] == -1).all() and (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("record", ["mt", "bw"])
+def test_ilp_merge_equals_sequential(indoor, cuda, record):
+    """The ILP min-tree picks the sequential updates' winner, bit for bit."""
+    o, d, act = _rays(3 * 2048, seed=5, device=cuda)
+    rays, lists, n_rows = bits.prepare(indoor.trace, o, d, torch.full((o.shape[0],), 1e30,
+                                                                     device=cuda), act, 2048)
+    table = indoor.trace.ltabw if record == "bw" else indoor.trace.ltab
+    seq = leaf_rows(table, lists, n_rows, rays, 2048, record=record)
+    ilp = leaf_rows(table, lists, n_rows, rays, 2048, record=record, merge="ilp")
+    for a, b in zip(seq, ilp):
+        assert torch.equal(a, b)
+
+
+def test_variant_rejects_unserved_combinations(indoor, cuda):
+    lists = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    n_rows = torch.zeros(1, dtype=torch.int32, device=cuda)
+    rays = torch.zeros(7, 2048, device=cuda)
+    for kw in (dict(record="bw", precision="bf16"), dict(merge="ilp", precision="bf16"),
+               dict(record="bw", trim=True), dict(precision="f16")):
+        with pytest.raises(ValueError):
+            leaf_rows(indoor.trace.ltab, lists, n_rows, rays, 2048, **kw)
+
+
+@pytest.mark.parametrize("algo", ["bitsw", "bitsh", "bits2", "bitsp", "bits8", "bits2wi"])
+def test_bits_render_through_kernel_matches_plain(indoor, cuda, algo):
+    """A 64x64 render with the bench knobs through each algo's entry points
+    equals the same render with the plain version swapped in, bit for
+    bit."""
+    cfg = RenderConfig.for_scene(indoor, 64, 64, 1, use_defocus=True)._replace(
+        block_rays=2048, wave_limit=32, compact=True, compact_every=16,
+        ladder=6, ladder_shrink=2, pixel_order="morton", algo=algo, pair_groups=2)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(64, 64), cuda)
+    reset_launches()
+    img_k, seed_k = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
+    torch.cuda.synchronize()
+    assert sum(LAUNCHES.values()) > 0
     with mock.patch.object(bits, "leaf_rows", leaf_rows_plain):
         img_p, seed_p = render_frame_seeded(indoor, cfg, cam, initial_seeds(cfg, 0, cuda))
     assert torch.isfinite(img_k).all() and (img_k >= 0).all()

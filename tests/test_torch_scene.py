@@ -54,13 +54,14 @@ def test_compiled_arrays_equal_jax(pair):
     host, scene = pair
     ref = _render_scene_arrays(host)
     got = scene_arrays(scene)
+    assert "wide_ltabw" in got  # the Baldwin–Weber table of the w algos
     for key, val in got.items():
         assert np.array_equal(_bits(val), _bits(ref[key])), key
 
 
 # TorchScene trace fields -> RenderScene / TraceArrays leaf.
-KEY_OF = {"ltab": "wide_ltab", "box_lo": "wide_box_lo", "box_hi": "wide_box_hi",
-          "anc": "wide_anc", "stream.stream": "wide_stream",
+KEY_OF = {"ltab": "wide_ltab", "ltabw": "wide_ltabw", "box_lo": "wide_box_lo",
+          "box_hi": "wide_box_hi", "anc": "wide_anc", "stream.stream": "wide_stream",
           "stream.rec_slot": "wide_rec_slot", "binary.nodes": "nodes_packed",
           "binary.tris": "tris_packed"}
 

@@ -78,15 +78,16 @@ def test_walk_render_matches_jax_and_bitsru8(box, bitsru8_frame, walk):
 
 
 def test_algo_checks(box):
-    """Unported algo names and algo / scene mismatches raise; no walk
-    falls back to another."""
+    """Unported algo names, bits* strings that traverse_wide rejects and
+    algo / scene mismatches raise; no walk falls back to another."""
     cam = CameraParams.from_camera(builtin.make_box_camera(8, 8), CPU)
     cfg = RenderConfig.for_scene(box, 8, 8, 1, use_defocus=False)
     pure = compile_scene(builtin.make_diffuse_box_scene(), CPU, two_level="pure")
     bad = [(box, cfg._replace(algo=a)) for a in
-           ("bits", "bitsw", "skip2", "spec2", "ilv2", "twolevel", "twolevelp")]
-    bad += [(pure, cfg._replace(algo=a)) for a in ("bitsru8", "skip", "stack")]
-    bad += [(box, cfg._replace(algo="bits", use_wide=False))]
+           ("skip2", "spec2", "specb2", "ilv2", "twolevel", "twolevelp",
+            "bitsq", "bitsru28", "bitsp2", "bitsr2")]
+    bad += [(pure, cfg._replace(algo=a)) for a in ("bitsru8", "bits", "skip", "stack")]
+    bad += [(box, cfg._replace(algo="bitsq", use_wide=False))]
     for scene, c in bad:
         with pytest.raises(ValueError, match="ported algos"):
             render_frame_seeded(scene, c, cam, initial_seeds(c, 0, CPU))
