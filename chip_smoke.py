@@ -79,7 +79,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      kernels line are those of the first frame that drives it;
   5e. bits parity: 64x64 @ 2 spp through PARITY_ALGOS with the kernel and
      with leaf_rows swapped for its plain version: bit equality or the
-     phase fails.
+     phase fails;
+  3f. schedules: the stream walk's TPU schedules (SCHEDULES: skip2, ilvN,
+     specN, specbN) against their plain versions on phase 3c's four ray
+     sets and on an any-hit set of 512x512 rays from inside the indoor
+     room, every one of which hits: t, record, u, v bit-identical and the
+     per-packet counts equal, or the phase fails; skip2 / ilvN also equal
+     to the skip kernel's output, specN / specbN's records equal to its
+     but at coincident-t ties (any-hit: the same rays hit).  Prints ms per
+     call, the bound (the tests the rows on the path need), visits per
+     packet and the rows tested over the rows on the path;
+  4f. schedule benches: one 512x512 @ 16 spp frame through each of
+     SCHEDULE_BENCH at phase 4's seeds, held to phase 4's bitsru8 image by
+     phase 4d's gates: frame time, rays/s, energy, launches, peak memory;
+  5f. schedule parity: 64x64 @ 2 spp through SCHEDULE_PARITY with the
+     kernel and with the plain version (skip2 / ilvN: phase 5c's plain
+     skip render, the same function): bit equality or the phase fails;
+  6. micro: the dependent-cursor microbenchmark (micro/dep_chain.py): each
+     variant's kernel against its plain version at 512 rows (bit-identical
+     or the phase fails) and both timed there (the kernels line's ms,
+     plain ms, launches and bound), then the kernel's ms at two sizes and
+     the slope in ns per row.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -87,6 +107,7 @@ and, last, the device summary.  Imports no JAX.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +118,7 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
+from surf_tpu_torch.micro import dep_chain
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -151,6 +173,17 @@ ROUNDING_ALGOS = ("bitsw", "bitswi", "bitsh", "bits2w", "bits2wi", "bits2h")
 ENERGY_BAND = {"bw": (-0.01, 0.01), "bf16": (-0.40, -0.30)}
 CARRY_ALGOS = ("bits2w", "bits2i", "bits2h", "bits2wi")
 PARITY_ALGOS = ("bitsw", "bitsh", "bits2", "bitsp")
+# Phases 3f, 4f, 5f: the stream walk's TPU schedules checked, benched and
+# rendered kernel against plain; the schedule whose 3f bounce-set time and
+# 4f launches stand for each entry point in the kernels line.
+SCHEDULES = ("skip2", "ilv2", "ilv4", "spec2", "spec4", "specb4", "specb8")
+SCHEDULE_BENCH = ("skip2", "ilv4", "spec4", "specb8")
+SCHEDULE_PARITY = ("skip2", "ilv2", "spec2", "specb4")
+SCHEDULE_OF = {"ilv": "ilv4", "spec": "spec4", "specb": "specb8"}
+# Phase 6: one plane-form record test, counted from dep_micro.cu: den 5,
+# num 6, the division 1, the hit point 6, u 6, v 6, then |den| and 7
+# compares (u + v's add among them).
+LEAN_FLOPS = 38
 
 
 def say(msg: str) -> None:
@@ -174,16 +207,31 @@ def phase_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
+def _ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel of nvcc's -Xptxas -v output: its
+    (mangled) name, registers and spill bytes."""
+    out, name, spill = [], None, "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, spill = m.group(1), "?"
+        elif name and "spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
+        elif name and "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers, {spill} bytes spilled")
+            name = None
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     so = _build.build()
     _build.library()
     dt = time.perf_counter() - t0
     log = so.with_suffix(".log")
-    info = [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "Compiling entry" in ln] if log.exists() else []
     say(f"[2 build] {so.name} in {dt:.1f} s (0 s means it was already built)")
-    for ln in info:
+    for ln in _ptxas_summary(log.read_text()) if log.exists() else []:
         say(f"[2 build]   {ln}")
 
 
@@ -708,9 +756,11 @@ def phase_twolevelp_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
         raise AssertionError("twolevelp render disagrees with the flattened render")
 
 
-def phase_walk_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
+def phase_walk_parity(dev: torch.device, w: int = 64, h: int = 64) -> dict:
+    """Returns each walk's plain-version image."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    plain_imgs = {}
     for walk, knobs in WALKS.items():
         cfg = wi.RenderConfig.for_scene(scene, w, h, 2, use_defocus=True)._replace(
             **BENCH_KNOBS, **knobs)
@@ -724,6 +774,8 @@ def phase_walk_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
         say(f"[5c parity] {walk} {w}x{h} @ 2 spp, kernel vs plain: "
             f"{_parity(img_k, img_p, f'{walk} kernel render', 0.01, 0.03)} "
             f"(plain render {time.perf_counter() - t0:.1f} s)")
+        plain_imgs[walk] = img_p
+    return plain_imgs
 
 
 def _bits_kw(name: str) -> dict:
@@ -904,6 +956,171 @@ def phase_bits_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
             f"(plain render {time.perf_counter() - t0:.1f} s)")
 
 
+def _inside_rays(n, dev):
+    """n rays from (0, 1, 0) +- 0.2 in random directions (default_rng(1)):
+    inside the indoor room, where every ray hits."""
+    rng = np.random.default_rng(1)
+    o = (np.array([0, 1, 0]) + rng.uniform(-0.2, 0.2, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+
+
+def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    primary, bounce = _first_wave(scene, cfg, cam, dev, w, h)
+    n = w * h
+    sets = _walk_sets(primary, bounce, n, dev)
+    sets["inside/any_hit"] = (*_inside_rays(n, dev), torch.ones(n, dtype=torch.bool, device=dev),
+                              torch.full((n,), 1e30, device=dev), True)
+    tr = scene.stream
+    out = {}
+    for label, (o, d, act, tm, any_hit) in sets.items():
+        rays, a = stream.pack_rays(o, bits.nudge(d), tm, act, BLOCK)
+        base = (tr.stream, rays, a, BLOCK)
+        g = a.shape[0] // BLOCK
+        skip = stream_walk.stream_walk(*base, "skip", any_hit, tr.max_depth)
+        skip_k_ms = _time_ms(lambda: stream_walk.stream_walk(*base, "skip", any_hit,
+                                                             tr.max_depth), 10, dev)
+        skip_work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
+        skip_plain, skip_ms = _time_once(lambda: stream_walk.stream_walk_plain(
+            *base, "skip", any_hit, tr.max_depth, work=skip_work), dev)
+        if label.startswith("inside") and not bool((skip[1][:n] >= 0).all()):
+            raise AssertionError(f"{label}: {int((skip[1][:n] < 0).sum())} rays miss")
+        for algo in SCHEDULES:
+            walk, width = stream_walk.parse_algo(algo)
+            args = (*base, algo, any_hit, tr.max_depth)
+            got = stream_walk.stream_walk(*args)
+            if walk == "ilv":  # its plain version is the skip walk's
+                want, p_ms, work = skip_plain, skip_ms, skip_work
+            else:
+                work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
+                want, p_ms = _time_once(
+                    lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
+            k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{algo} {label}: kernel differs from its plain version")
+            if walk == "ilv":
+                vs_skip = all(torch.equal(x, y) for x, y in zip(got, skip))
+            elif any_hit:
+                vs_skip = torch.equal(got[1] >= 0, skip[1] >= 0)
+            else:
+                vs_skip = bool(((got[1] == skip[1]) | (got[0] == skip[0])).all())
+            if not vs_skip:
+                raise AssertionError(f"{algo} {label}: differs from the skip kernel")
+            v = want[4].to(torch.int64)
+            tested = float(v[:, 2].sum()) * (width if walk in ("spec", "specb") else 1)
+            work = work.sum(0).tolist()
+            bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS,
+                                        _nbytes(tr.stream, rays, a, *got))
+            say(f"[3f schedules] {algo} {label}: bit-identical, counts equal, "
+                f"{'equal to skip' if walk == 'ilv' else 'skip hits kept'}; kernel "
+                f"{k_ms:.3f} ms (skip kernel {skip_k_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; live tests: {work[0]} slab, {work[1]} "
+                f"triangle); visits per packet mean {float(v[:, 0].float().mean()):.1f} max "
+                f"{int(v[:, 0].max())}; rows tested / on the path "
+                f"{tested / max(float(v[:, 0].sum()), 1.0):.3f}")
+            name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"
+            rec = out.setdefault(name, {"max_abs_err": 0.0})
+            if algo == SCHEDULE_OF[walk] and label.startswith("bounce"):
+                rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def phase_schedule_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
+                         spp: int = SPP) -> dict:
+    """The bench config through each schedule of SCHEDULE_BENCH: one frame at
+    phase 4's second frame's seeds (total_samples 2 * spp), held to its
+    image by phase 4d's gates.  Returns each entry point's launches in the
+    frame of its SCHEDULE_OF schedule."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    launches = {}
+    for algo in SCHEDULE_BENCH:
+        walk, _ = stream_walk.parse_algo(algo)
+        cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+            **BENCH_KNOBS, algo=algo)
+        _render(scene, cfg, cam, dev, 0, 1)  # warm-up
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        stream_walk.reset_launches()
+        t0 = time.perf_counter()
+        img = _render(scene, cfg, cam, dev, 2 * spp, spp)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        mine = {k: stream_walk.LAUNCHES[k] for k in stream_walk.LAUNCHES if f"_{walk}_" in k}
+        energy = _check_image(img, f"{algo} bench", spp)
+        for name, k in mine.items():
+            if k <= 0 and dev.type == "cuda":
+                raise AssertionError(f"{name} was never launched by the {algo} render")
+            if SCHEDULE_OF[walk] == algo:
+                launches[name] = k
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+        say(f"[4f schedules] {algo}: {w}x{h} @ {spp} spp, frame {dt:.3f} s, "
+            f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {mine}, peak memory "
+            f"{peak:.2f} GiB; vs bitsru8: {_pixel_gate(ref_img, img, f'{algo} bench frame')}")
+    return launches
+
+
+def phase_schedule_parity(dev: torch.device, skip_plain=None, w: int = 64,
+                          h: int = 64) -> None:
+    """skip2 / ilvN's plain version is the skip walk's: with ``skip_plain``,
+    phase 5c's plain skip image of the same render, they are held to it."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    for algo in SCHEDULE_PARITY:
+        cfg = wi.RenderConfig.for_scene(scene, w, h, 2, use_defocus=True)._replace(
+            **BENCH_KNOBS, algo=algo)
+        img_k = _render(scene, cfg, cam, dev, 0, 1)
+        t0 = time.perf_counter()
+        if skip_plain is not None and stream_walk.parse_algo(algo)[0] == "ilv":
+            img_p = skip_plain
+        else:
+            with mock.patch.object(stream, "stream_walk", stream_walk.stream_walk_plain):
+                img_p = _render(scene, cfg, cam, dev, 0, 1)
+        _sync(dev)
+        msg = _parity(img_k, img_p, f"{algo} kernel render", 0.01, 0.03)
+        if not torch.equal(img_k, img_p):
+            raise AssertionError(f"{algo}: kernel and plain renders differ ({msg})")
+        say(f"[5f parity] {algo} {w}x{h} @ 2 spp, kernel vs plain: {msg} "
+            f"(plain render {time.perf_counter() - t0:.1f} s)")
+
+
+def phase_micro(dev: torch.device) -> dict:
+    """The dependent-cursor microbenchmark; per variant the kernels line's
+    numbers at dep_chain.CHECK_ROWS rows, where the plain version runs too.
+    The bound counts what the variant's outputs need of the distinct rows
+    that walk reads: dep0 one 32-byte sector of each (its skip lane) and
+    its outputs, no operations; the others the whole rows, the rays and
+    the outputs, with every row's records, and the boxes of the rows whose
+    vote picks the cursor: none for dep1, every row for dep1red and
+    dep1lean, the last row of a window for depb8 and depb8all (whose
+    resolve keeps only the last row's pick)."""
+    res = dep_chain.measure(dev, say)
+    out_bytes = 8 * dep_chain.RAYS + 4
+    out = {}
+    for v, r in res.items():
+        tests = r["rows"] * dep_chain.RAYS * 8
+        rec_flops = LEAN_FLOPS if v == "dep1lean" else MT_FLOPS
+        box_rows = {"dep0": 0, "dep1": 0, "depb8": r["rows"] // 8,
+                    "depb8all": r["rows"] // 8}.get(v, r["rows"])
+        flops = 0 if v == "dep0" else (tests * rec_flops
+                                       + box_rows * dep_chain.RAYS * 8 * SLAB_FLOPS)
+        n_bytes = (r["rows"] * 32 + out_bytes if v == "dep0" else
+                   r["rows"] * 4 * dep_chain.LANE + 24 * dep_chain.RAYS + out_bytes)
+        bound_ms, bound_by = _bound(flops, n_bytes)
+        say(f"[6 micro] {v}: bound {bound_ms:.6f} ms ({bound_by}; {r['rows']} rows read) "
+            f"at {dep_chain.CHECK_ROWS} rows; kernel {r['check_ms']:.4f} ms there "
+            f"({r['launches']} launches)")
+        out[f"dep_chain_{v}"] = dict(max_abs_err=0.0, ms=r["check_ms"],
+                                     plain_ms=r["plain_ms"], bound_ms=bound_ms,
+                                     bound_by=bound_by, launches=r["launches"])
+    return out
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -918,6 +1135,13 @@ KERNELS = {
        for a in ("skip", "stack") for m in ("closest", "any")},
     **{f"bvh_walk_{m}": ("surf_tpu_torch/csrc/bvh_walk.cu",
                          "surf_tpu/accel/pallas_traverse.py:193") for m in ("closest", "any")},
+    # ilv serves skip2 (_walk_block_pair, pallas_wide.py:314) as ilv2
+    **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
+                                f"surf_tpu/accel/pallas_wide.py:{line}")
+       for a, line in (("ilv", 264), ("spec", 339), ("specb", 514))
+       for m in ("closest", "any")},
+    **{f"dep_chain_{v}": ("surf_tpu_torch/csrc/dep_micro.cu", "scripts/tpu_dep_micro.py:222")
+       for v in dep_chain.VARIANTS},
 }
 
 
@@ -948,8 +1172,14 @@ def main() -> int:
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     timed("5 parity", phase_parity, dev)
     timed("5b parity", phase_twolevelp_parity, dev)
-    timed("5c parity", phase_walk_parity, dev)
+    plain_imgs = timed("5c parity", phase_walk_parity, dev)
     timed("5e parity", phase_bits_parity, dev)
+    kernels.update(timed("3f schedules", phase_schedule_kernel, dev))
+    launches.update(timed("4f schedules", phase_schedule_bench, dev, bench_img))
+    timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
+    micro = timed("6 micro", phase_micro, dev)
+    kernels.update(micro)
+    launches.update({k: v.pop("launches") for k, v in micro.items()})
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

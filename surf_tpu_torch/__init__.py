@@ -14,6 +14,8 @@ Mirrors ``surf_tpu``'s module names so each counterpart is easy to find:
                   (``csrc/leaf_rows.cu``, ``csrc/inst_rows.cu``).
 - ``wavefront`` — the wavefront integrator: raygen, extend, shade, NEE,
                   compaction and the width ladder, driven from the host.
+- ``micro``     — microbenchmarks of the card's mechanisms (``dep_chain``:
+                  the dependent-cursor chain, ``csrc/dep_micro.cu``).
 
 The package imports ``torch``, ``numpy`` and the standard library, and
 nothing of ``surf_tpu`` or ``jax``.

@@ -27,6 +27,14 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The C entry points of stream_walk.cu (one kernel template per walk) and
+# dep_micro.cu (one per variant); their wrappers count launches under these
+# names.
+WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
+                          for m in ("closest", "any"))
+DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
+                                                     "depb8", "depb8all"))
+
 _LIB: ctypes.CDLL | None = None
 
 
@@ -106,12 +114,17 @@ def library() -> ctypes.CDLL:
             # n_rays, block_rays, t, r, u, v, inst, stream
             fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in ("stream_walk_skip_closest", "stream_walk_skip_any",
-                     "stream_walk_stack_closest", "stream_walk_stack_any"):
+        for name in WALK_ENTRY_POINTS:
             fn = getattr(lib, name)
-            # stream, n_entries, rays, act, n_rays, block_rays, stack_depth,
-            # t, r, u, v, visits, stream
+            # stream, n_entries, rays, act, n_rays, block_rays, arg (stack
+            # depth, packets per block or rows per window), t, r, u, v,
+            # visits, stream
             fn.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
+            fn.restype = i
+        for name in DEP_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            # table, n_rows, rays, n_steps, t, r, end, stream
+            fn.argtypes = [p, i, p, i, p, p, p, p]
             fn.restype = i
         for name in ("bvh_walk_closest", "bvh_walk_any"):
             fn = getattr(lib, name)

@@ -5,6 +5,7 @@
     python -m surf_tpu_torch.breakdown --scene indoor --algo bitsru8
     python -m surf_tpu_torch.breakdown --scene indoor --algo bitsw   # any bits* algo
     python -m surf_tpu_torch.breakdown --scene indoor --algo skip    # or stack
+    python -m surf_tpu_torch.breakdown --scene indoor --algo spec4   # skip2, ilvN, specN, specbN
     python -m surf_tpu_torch.breakdown --scene indoor --algo binary  # use_wide=False
 
 Runs on the card at 512x512 with the bench knobs (the stress scene with
@@ -99,7 +100,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("indoor", "stress"), default="stress")
     ap.add_argument("--algo", type=_algo, default="twolevelp",
-                    help="a RenderConfig algo (twolevelp, skip, stack or any bits* "
+                    help="a RenderConfig algo (twolevelp, a stream walk such as skip, "
+                         "stack, skip2, ilv2, spec4, specb8, or any bits* "
                          "string), or binary: the binary walk (use_wide=False)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

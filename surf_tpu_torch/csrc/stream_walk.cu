@@ -1,30 +1,45 @@
-// Packet walks of the 8-wide DFS stream: algo="skip" and algo="stack".
+// Packet walks of the 8-wide DFS stream: algo="skip", "stack", and the TPU's
+// schedules of the skip walk, "skip2" / "ilvN" and "specN" / "specbN".
 //
 // Replaces surf_tpu/accel/pallas_wide.py `_kernel_multiblock` with its walks
-// `_walk_block` / `_make_skip_visit` (skip) and `_walk_block_stack`
-// (stack), closest hit and any-hit.  The stream (accel/wide.py) holds node
-// rows (8 child boxes and child pointers) and leaf rows (8 triangles);
-// lane 9 of a row says which, lane 10 is its skip link.
+// `_walk_block` / `_make_skip_visit` (skip), `_walk_block_stack` (stack),
+// `_walk_block_pair` / `_walk_block_multi` (skip2, ilvN),
+// `_walk_block_spec` (specN) and `_walk_block_specb` (specbN), closest hit
+// and any-hit.  The stream (accel/wide.py) holds node rows (8 child boxes
+// and child pointers) and leaf rows (8 triangles); lane 9 of a row says
+// which, lane 10 is its skip link.
 //
 // What bounds it on the card: every visit of a row costs each ray of the
 // packet 8 slab tests (a node row) or 8 Möller–Trumbore tests (a leaf
 // row), against 512 bytes of row that every ray reads, so the work is
 // operations, not bytes.  What a packet walk adds is latency: the next row
 // depends on a packet-wide vote, so each visit ends in a block barrier.
+// The TPU schedules attack that chain: ilvN lets N packets share one vote
+// and barrier a step; specN / specbN test N consecutive rows a step and
+// resolve the cursor from their N votes after one barrier.
 //
-// Design: one block per packet, the function the TPU kernel computes.
-// kThreads threads hold block_rays / kThreads rays each in registers (a
-// 2048-ray packet exceeds 1024 threads).  The packet's cursor is the same
-// in every thread: each thread reads the visited row from device memory at
-// the same addresses as float4 loads (a broadcast in L1), tests its rays,
-// and `__syncthreads_or` gives the packet-wide "some live ray hits", which
-// is also the visit's barrier.  The stack walk needs a vote per child: an
-// 8-bit mask per thread, OR-ed over the warp (`__reduce_or_sync`) and over
-// the block with one shared-memory atomicOr per warp, double-buffered by
-// visit parity so that one barrier orders its reset; its (row, remaining
-// children) stack lives in shared memory, read by every thread after a
-// barrier and written by thread 0 after the vote.  A pop re-reads the
-// parent row's child pointer from device memory, as the TPU kernel does.
+// Design: one block per packet (ilvN: per N packets), the function the TPU
+// kernel computes.  kThreads threads hold block_rays / kThreads rays each
+// (a 2048-ray packet exceeds 1024 threads).  The packet's cursor is the
+// same in every thread: each thread reads the visited row from device
+// memory at the same addresses as float4 loads (a broadcast in L1), tests
+// its rays, and a block vote gives the packet-wide "some live ray hits",
+// which is also the visit's barrier: `__syncthreads_or` for one bit, else
+// (`surf::block_or`, vote.cuh) a bit mask per thread OR-ed over the warp
+// (`__reduce_or_sync`) and over the block with one shared-memory atomicOr
+// per warp, in one of three slots by step so that one barrier a step
+// orders both the ORs and the next slot's reset.  The stack walk votes one
+// bit per child; its (row, remaining children) stack lives in shared
+// memory, read by every thread after a barrier and written by thread 0
+// after the vote.  A pop re-reads the parent row's child pointer from
+// device memory, as the TPU kernel does.  ilvN keeps the rays of its N
+// packets (up to 8,192: too many for registers) as (o, d) in dynamic
+// shared memory, 24 bytes a ray, computes 1/d at each node row, keeps each
+// ray's best hit in registers, and votes one bit per packet; a packet
+// whose cursor has left the stream loads no rows but stays in the
+// barrier.  specN / specbN keep the skip walk's registers, test the
+// window's rows in stream order (a node row sets its bit of the window's
+// descend mask) and resolve the same cursor in every thread.
 //
 // Semantics kept from the TPU kernel: the slab test's min/max propagate
 // NaN as jnp.minimum/maximum do (empty child slots and pad rows are NaN
@@ -32,32 +47,38 @@
 // zero direction components, so 1/d is an IEEE division of finite values;
 // Möller–Trumbore is mt.cuh's; the record id is row * 8 + j; replacement
 // only on a strictly closer t; with any-hit a ray stops testing at its
-// first hit and the packet stops once every active ray has one.  The TPU
-// kernel evaluates both interpretations of every row and kills the wrong
-// one (a NaN added to a node row's t); here a branch on the row kind,
-// uniform in the block, runs only the right one: the two agree bit for
-// bit, since the TPU's leaf-row t + 0.0 equals t for every t that can pass
-// t >= 1e-5.  A packet with no active ray visits nothing.  Build with
-// --fmad=false so the arithmetic rounds as the plain PyTorch version's.
+// first hit and the packet stops once every active ray has one (spec /
+// specb: checked only between groups of kSpecVisits / kSpecbVisits
+// windows, as JAX's while condition is).  The TPU kernel evaluates both
+// interpretations of every row and kills the wrong one (a NaN added to a
+// node row's t); here a branch on the row kind, uniform in the block, runs
+// only the right one: the two agree bit for bit, since the TPU's leaf-row
+// t + 0.0 equals t for every t that can pass t >= 1e-5.  A packet with no
+// active ray visits nothing.  Build with --fmad=false so the arithmetic
+// rounds as the plain PyTorch version's.
 
 #include <cuda_runtime.h>
 
 #include "mt.cuh"
+#include "vote.cuh"
 
 namespace {
 
 constexpr int kLane = 128;      // floats per stream row
 constexpr int kWidth = 8;       // children (triangles) per row
-constexpr int kThreads = 512;   // threads per block (= per packet)
+constexpr int kThreads = 512;   // threads per block
 constexpr int kMaxStack = 64;   // stack capacity of the stack walk
 constexpr int kBelt = 32;       // stack walk: at most n_entries + kBelt visits
+constexpr int kMaxIlv = 4;      // ilvN: packets per block
+constexpr int kMaxSpec = 8;     // specN / specbN: rows per window
+constexpr int kSpecVisits = 32;   // spec: windows between any-hit checks
+constexpr int kSpecbVisits = 8;   // specb: windows between any-hit checks
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? a + b : fminf(a, b);
-}
+enum Walk { kSkip, kStack, kIlv, kSpec, kSpecb };
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
+__device__ __forceinline__ const float4* row_at(const float* stream, int p) {
+  return reinterpret_cast<const float4*>(stream) + static_cast<size_t>(p) * (kLane / 4);
 }
 
 // One packet's rays, kRays of them per thread, in registers.
@@ -125,24 +146,6 @@ struct Packet {
     return any;
   }
 
-  // Slab test of ray r against a child box (pallas_wide.py:194-209).
-  __device__ __forceinline__ bool slab(int r, float lox, float loy, float loz,
-                                       float hix, float hiy, float hiz) const {
-    const float txn = (lox - ox[r]) * ix[r];
-    const float txf = (hix - ox[r]) * ix[r];
-    float tmin = nan_min(txn, txf);
-    float tmax = nan_max(txn, txf);
-    const float tyn = (loy - oy[r]) * iy[r];
-    const float tyf = (hiy - oy[r]) * iy[r];
-    tmin = nan_max(tmin, nan_min(tyn, tyf));
-    tmax = nan_min(tmax, nan_max(tyn, tyf));
-    const float tzn = (loz - oz[r]) * iz[r];
-    const float tzf = (hiz - oz[r]) * iz[r];
-    tmin = nan_max(tmin, nan_min(tzn, tzf));
-    tmax = nan_min(tmax, nan_max(tzn, tzf));
-    return (tmax >= tmin) & (tmin < bt[r]) & (tmax > 0.0f);
-  }
-
   // Bit k set when some live ray of this thread hits child box k of a node
   // row.
   template <bool kAny>
@@ -154,7 +157,10 @@ struct Packet {
       const float4 b = __ldg(row + 4 * k + 1);  // hi y, z; child, is leaf
 #pragma unroll
       for (int r = 0; r < kRays; ++r) {
-        if (live<kAny>(r) && slab(r, a.x, a.y, a.z, a.w, b.x, b.y)) m |= 1u << k;
+        if (live<kAny>(r) && surf::slab_hit(ox[r], oy[r], oz[r], ix[r], iy[r], iz[r],
+                                            bt[r], a.x, a.y, a.z, a.w, b.x, b.y)) {
+          m |= 1u << k;
+        }
       }
     }
     return m;
@@ -185,6 +191,13 @@ struct Packet {
   }
 };
 
+__device__ __forceinline__ void store_visits(int* visits_out, int packet, int visits,
+                                             int leaf_visits, int windows) {
+  visits_out[3 * packet] = visits;
+  visits_out[3 * packet + 1] = leaf_visits;
+  visits_out[3 * packet + 2] = windows;
+}
+
 // Skip-link walk (pallas_wide.py:142-261).
 template <int kRays, bool kAny>
 __global__ void __launch_bounds__(kThreads)
@@ -197,9 +210,8 @@ stream_walk_skip_kernel(const float* __restrict__ stream, int n_entries,
   Packet<kRays> P;
   int p = __syncthreads_or(P.load(rays, act, n_rays, first)) ? 0 : n_entries;
   int visits = 0, leaf_visits = 0;
-  const float4* s4 = reinterpret_cast<const float4*>(stream);
   while (p < n_entries) {
-    const float4* row = s4 + static_cast<size_t>(p) * (kLane / 4);
+    const float4* row = row_at(stream, p);
     const float4 meta = __ldg(row + 2);  // lanes 8-11: lane 9 is_leaf, lane 10 skip
     const bool is_leaf = __float_as_int(meta.y) == 1;
     bool vote = false;
@@ -221,10 +233,7 @@ stream_walk_skip_kernel(const float* __restrict__ stream, int n_entries,
     p = next;
   }
   P.store(t_out, r_out, u_out, v_out, first);
-  if (threadIdx.x == 0) {
-    visits_out[2 * blockIdx.x] = visits;
-    visits_out[2 * blockIdx.x + 1] = leaf_visits;
-  }
+  if (threadIdx.x == 0) store_visits(visits_out, blockIdx.x, visits, leaf_visits, visits);
 }
 
 // Register-stack walk (pallas_wide.py:672-859), the stack in shared memory.
@@ -305,47 +314,312 @@ stream_walk_stack_kernel(const float* __restrict__ stream, int n_entries,
     cleaf = nleaf;
   }
   P.store(t_out, r_out, u_out, v_out, first);
+  if (threadIdx.x == 0) store_visits(visits_out, blockIdx.x, visits, leaf_visits, visits);
+}
+
+// ilvN / skip2 (pallas_wide.py:264-335): kM packets of kPer * kThreads rays
+// walk the skip walk side by side, each with its own cursor, one vote bit
+// per packet and one barrier a step for all of them.  Each packet's result
+// and visits are the skip walk's.  The rays' (o, d) lie in dynamic shared
+// memory, [6][kM * block_rays]; ray j of this thread is the block's ray
+// j * kThreads + threadIdx.x, of packet j / kPer.
+template <int kM, int kPer, bool kAny>
+__global__ void __launch_bounds__(kThreads)
+stream_walk_ilv_kernel(const float* __restrict__ stream, int n_entries,
+                       const float* __restrict__ rays, const int* __restrict__ act,
+                       int n_rays, int block_rays, float* __restrict__ t_out,
+                       int* __restrict__ r_out, float* __restrict__ u_out,
+                       float* __restrict__ v_out, int* __restrict__ visits_out) {
+  extern __shared__ float s_ray[];
+  __shared__ unsigned s_vote[3];
+  constexpr int kR = kM * kPer;
+  constexpr int nb = kR * kThreads;  // == kM * block_rays
+  const int packets = n_rays / block_rays;
+  const int pk0 = blockIdx.x * kM;
+  const int first = pk0 * block_rays;
+  const size_t s = static_cast<size_t>(n_rays);
+  float bt[kR], bu[kR], bv[kR];
+  int br[kR];
+  unsigned act_bits = 0u;  // bit j: ray j is active
+  unsigned mine = 0u;      // bit m: this thread holds an active ray of packet m
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int loc = j * kThreads + threadIdx.x;
+    const int i = first + loc;
+    const bool real = pk0 + j / kPer < packets;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) s_ray[c * nb + loc] = real ? rays[c * s + i] : 1.0f;
+    bt[j] = real ? rays[6 * s + i] : 0.0f;
+    br[j] = -1;
+    bu[j] = 0.0f;
+    bv[j] = 0.0f;
+    if (real && act[i] != 0) {
+      act_bits |= 1u << j;
+      mine |= 1u << (j / kPer);
+    }
+  }
   if (threadIdx.x == 0) {
-    visits_out[2 * blockIdx.x] = visits;
-    visits_out[2 * blockIdx.x + 1] = leaf_visits;
+    s_vote[0] = 0u;
+    s_vote[1] = 0u;
+    s_vote[2] = 0u;
+  }
+  __syncthreads();  // the slots are zero, the rays in shared memory
+  const unsigned started = surf::block_or(mine, s_vote, 0);
+  int p[kM], visits[kM], leaf_visits[kM];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    p[m] = (started >> m) & 1u ? 0 : n_entries;
+    visits[m] = 0;
+    leaf_visits[m] = 0;
+  }
+  for (int step = 1;; ++step) {
+    bool on = false;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) on |= p[m] < n_entries;
+    if (!on) break;
+    unsigned vote = 0u;
+    bool leaf[kM];
+    int skip[kM];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      leaf[m] = false;
+      skip[m] = 0;
+      if (p[m] >= n_entries) continue;
+      const float4* row = row_at(stream, p[m]);
+      const float4 meta = __ldg(row + 2);
+      leaf[m] = __float_as_int(meta.y) == 1;
+      skip[m] = __float_as_int(meta.z);
+      bool v = false;
+      if (leaf[m]) {
+        const int rec0 = p[m] * kWidth;
+#pragma unroll
+        for (int k = 0; k < kWidth; ++k) {
+          const float4 a = __ldg(row + 4 * k);
+          const float4 b = __ldg(row + 4 * k + 1);
+          const float4 c = __ldg(row + 4 * k + 2);
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) {
+            const int j = m * kPer + q;
+            const int loc = j * kThreads + threadIdx.x;
+            float t, u, v_;
+            const bool hit = surf::mt_hit(
+                a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, s_ray[loc],
+                s_ray[nb + loc], s_ray[2 * nb + loc], s_ray[3 * nb + loc],
+                s_ray[4 * nb + loc], s_ray[5 * nb + loc], bt[j], t, u, v_);
+            if (hit && ((act_bits >> j) & 1u) && (!kAny || br[j] < 0)) {
+              bt[j] = t;
+              br[j] = rec0 + k;
+              bu[j] = u;
+              bv[j] = v_;
+            }
+          }
+        }
+        if (kAny) {
+#pragma unroll
+          for (int q = 0; q < kPer; ++q) {
+            const int j = m * kPer + q;
+            v |= ((act_bits >> j) & 1u) && br[j] < 0;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) {
+          const int j = m * kPer + q;
+          if (!((act_bits >> j) & 1u) || (kAny && br[j] >= 0)) continue;
+          const int loc = j * kThreads + threadIdx.x;
+          const float ox = s_ray[loc], oy = s_ray[nb + loc], oz = s_ray[2 * nb + loc];
+          const float ix = 1.0f / s_ray[3 * nb + loc];
+          const float iy = 1.0f / s_ray[4 * nb + loc];
+          const float iz = 1.0f / s_ray[5 * nb + loc];
+#pragma unroll
+          for (int k = 0; k < kWidth; ++k) {
+            const float4 a = __ldg(row + 4 * k);
+            const float4 b = __ldg(row + 4 * k + 1);
+            v |= surf::slab_hit(ox, oy, oz, ix, iy, iz, bt[j], a.x, a.y, a.z, a.w, b.x,
+                                b.y);
+          }
+        }
+      }
+      if (v) vote |= 1u << m;
+    }
+    // Per packet, as the skip walk's vote: a node row, some live ray hits
+    // some child; a leaf row (any-hit), some active ray still lacks a hit.
+    vote = surf::block_or(vote, s_vote, step);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      if (p[m] >= n_entries) continue;
+      const bool any = (vote >> m) & 1u;
+      int next = (leaf[m] || any) ? p[m] + 1 : skip[m];
+      next = max(next, p[m] + 1);
+      if (kAny && leaf[m] && !any) next = n_entries;
+      ++visits[m];
+      leaf_visits[m] += leaf[m];
+      p[m] = next;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int i = first + j * kThreads + threadIdx.x;
+    if (pk0 + j / kPer < packets) {
+      t_out[i] = bt[j];
+      r_out[i] = br[j];
+      u_out[i] = bu[j];
+      v_out[i] = bv[j];
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      if (pk0 + m < packets) {
+        store_visits(visits_out, pk0 + m, visits[m], leaf_visits[m], visits[m]);
+      }
+    }
   }
 }
 
-template <int kRays, bool kAny, bool kStack>
-int launch(const float* stream, int n_entries, const float* rays, const int* act,
-           int n_rays, int block_rays, int stack_depth, float* t, int* r, float* u,
-           float* v, int* visits, cudaStream_t cs) {
-  const int packets = n_rays / block_rays;
-  if constexpr (kStack) {
-    stream_walk_stack_kernel<kRays, kAny><<<packets, kThreads, 0, cs>>>(
-        stream, n_entries, rays, act, n_rays, block_rays, stack_depth, t, r, u, v,
-        visits);
-  } else {
-    stream_walk_skip_kernel<kRays, kAny><<<packets, kThreads, 0, cs>>>(
-        stream, n_entries, rays, act, n_rays, block_rays, t, r, u, v, visits);
+// specN (pallas_wide.py:339-511) and specbN (kBlock, :514-666): a window of
+// `width` rows a step, tested in stream order against the running state;
+// one block_or gives every thread the window's descend mask, and every
+// thread resolves the same cursor.  spec tests rows min(base + w, n - 1)
+// with base = min(p, n - 1); specb the rows [base, base + width) with base
+// = clip(p, 0, n - width).  The cursor starts at base (spec) or p (specb);
+// row base + w steers while the cursor equals it and lies in the stream,
+// to base + w + 1 on a leaf row or a descend, else to its skip link; then
+// max(cursor, p + 1).  Windows run in groups of kSpecVisits (kSpecbVisits)
+// and the stop tests come between groups, as JAX's while condition: a
+// group goes on after the cursor has left the stream, re-testing the
+// clamped window (those rows steer nothing).  Visits count the rows that
+// steered.
+template <int kRays, bool kAny, bool kBlock>
+__global__ void __launch_bounds__(kThreads)
+stream_walk_spec_kernel(const float* __restrict__ stream, int n_entries,
+                        const float* __restrict__ rays, const int* __restrict__ act,
+                        int n_rays, int block_rays, int width,
+                        float* __restrict__ t_out, int* __restrict__ r_out,
+                        float* __restrict__ u_out, float* __restrict__ v_out,
+                        int* __restrict__ visits_out) {
+  __shared__ unsigned s_vote[3];
+  const int first = blockIdx.x * block_rays;
+  Packet<kRays> P;
+  const bool mine = P.load(rays, act, n_rays, first);
+  if (threadIdx.x == 0) {
+    s_vote[0] = 0u;
+    s_vote[1] = 0u;
+    s_vote[2] = 0u;
   }
+  int p = __syncthreads_or(mine) ? 0 : n_entries;
+  int visits = 0, leaf_visits = 0, windows = 0;
+  constexpr int kGroup = kBlock ? kSpecbVisits : kSpecVisits;
+  while (p < n_entries && (!kAny || __syncthreads_or(P.unfinished()))) {
+    for (int g = 0; g < kGroup; ++g) {
+      const int base = kBlock ? max(min(p, n_entries - width), 0) : min(p, n_entries - 1);
+      unsigned desc = 0u;
+#pragma unroll 1
+      for (int w = 0; w < width; ++w) {
+        const int r = kBlock ? base + w : min(base + w, n_entries - 1);
+        const float4* row = row_at(stream, r);
+        if (__float_as_int(__ldg(row + 2).y) == 1) {
+          P.template leaf_row<kAny>(row, r * kWidth);
+        } else if (P.template child_hits<kAny>(row) != 0u) {
+          desc |= 1u << w;
+        }
+      }
+      desc = surf::block_or(desc, s_vote, windows);
+      ++windows;
+      if (p >= n_entries) continue;
+      int nxt = kBlock ? p : base;
+      for (int w = 0; w < width; ++w) {
+        const int r = base + w;
+        if (nxt != r || r >= n_entries) continue;
+        const float4 meta = __ldg(row_at(stream, r) + 2);
+        const bool is_leaf = __float_as_int(meta.y) == 1;
+        nxt = (is_leaf || ((desc >> w) & 1u)) ? r + 1 : __float_as_int(meta.z);
+        ++visits;
+        leaf_visits += is_leaf;
+      }
+      p = max(nxt, p + 1);
+    }
+  }
+  P.store(t_out, r_out, u_out, v_out, first);
+  if (threadIdx.x == 0) store_visits(visits_out, blockIdx.x, visits, leaf_visits, windows);
+}
+
+struct Args {
+  const float* stream;
+  int n_entries;
+  const float* rays;
+  const int* act;
+  int n_rays, block_rays, arg;
+  float* t;
+  int* r;
+  float* u;
+  float* v;
+  int* visits;
+  cudaStream_t cs;
+};
+
+template <int kM, int kPer, bool kAny>
+int launch_ilv(const Args& a) {
+  const int packets = a.n_rays / a.block_rays;
+  const int smem = 6 * static_cast<int>(sizeof(float)) * kM * a.block_rays;
+  auto* kernel = stream_walk_ilv_kernel<kM, kPer, kAny>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<(packets + kM - 1) / kM, kThreads, smem, a.cs>>>(
+      a.stream, a.n_entries, a.rays, a.act, a.n_rays, a.block_rays, a.t, a.r, a.u, a.v,
+      a.visits);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kAny, bool kStack>
-int dispatch(const float* stream, int n_entries, const float* rays, const int* act,
-             int n_rays, int block_rays, int stack_depth, float* t, int* r, float* u,
-             float* v, int* visits, cudaStream_t cs) {
-  if (kStack && (stack_depth < 1 || stack_depth > kMaxStack)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+template <int kPer, bool kAny>
+int dispatch_ilv(const Args& a) {
+  switch (a.arg) {
+    case 1: return launch_ilv<1, kPer, kAny>(a);
+    case 2: return launch_ilv<2, kPer, kAny>(a);
+    case 3: return launch_ilv<3, kPer, kAny>(a);
+    case 4: return launch_ilv<4, kPer, kAny>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (block_rays / kThreads) {
-    case 1:
-      return launch<1, kAny, kStack>(stream, n_entries, rays, act, n_rays, block_rays,
-                                     stack_depth, t, r, u, v, visits, cs);
-    case 2:
-      return launch<2, kAny, kStack>(stream, n_entries, rays, act, n_rays, block_rays,
-                                     stack_depth, t, r, u, v, visits, cs);
-    case 4:
-      return launch<4, kAny, kStack>(stream, n_entries, rays, act, n_rays, block_rays,
-                                     stack_depth, t, r, u, v, visits, cs);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int kWalk, int kPer, bool kAny>
+int launch(const Args& a) {
+  const int packets = a.n_rays / a.block_rays;
+  if constexpr (kWalk == kIlv) {
+    return dispatch_ilv<kPer, kAny>(a);
+  } else if constexpr (kWalk == kStack) {
+    stream_walk_stack_kernel<kPer, kAny><<<packets, kThreads, 0, a.cs>>>(
+        a.stream, a.n_entries, a.rays, a.act, a.n_rays, a.block_rays, a.arg, a.t, a.r,
+        a.u, a.v, a.visits);
+  } else if constexpr (kWalk == kSkip) {
+    stream_walk_skip_kernel<kPer, kAny><<<packets, kThreads, 0, a.cs>>>(
+        a.stream, a.n_entries, a.rays, a.act, a.n_rays, a.block_rays, a.t, a.r, a.u,
+        a.v, a.visits);
+  } else {
+    stream_walk_spec_kernel<kPer, kAny, kWalk == kSpecb><<<packets, kThreads, 0, a.cs>>>(
+        a.stream, a.n_entries, a.rays, a.act, a.n_rays, a.block_rays, a.arg, a.t, a.r,
+        a.u, a.v, a.visits);
+  }
+  (void)packets;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kWalk, bool kAny>
+int dispatch(const Args& a) {
+  const bool ok = kWalk == kSkip ||
+                  (kWalk == kStack && a.arg >= 1 && a.arg <= kMaxStack) ||
+                  (kWalk == kIlv && a.arg >= 1 && a.arg <= kMaxIlv &&
+                   6 * static_cast<long>(sizeof(float)) * a.arg * a.block_rays <= kMaxSmem) ||
+                  (kWalk == kSpec && a.arg >= 1 && a.arg <= kMaxSpec) ||
+                  (kWalk == kSpecb && a.arg >= 1 && a.arg <= kMaxSpec &&
+                   a.arg <= a.n_entries);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.block_rays / kThreads) {
+    case 1: return launch<kWalk, 1, kAny>(a);
+    case 2: return launch<kWalk, 2, kAny>(a);
+    case 4: return launch<kWalk, 4, kAny>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -354,21 +628,28 @@ int dispatch(const float* stream, int n_entries, const float* rays, const int* a
 // Plain C entry points for ctypes.  stream is [n_entries, 128]; rays is
 // [7, n_rays] (ox, oy, oz, dx, dy, dz, t_max); act is [n_rays]; n_rays is a
 // positive multiple of block_rays, which is 1, 2 or 4 times kThreads.
-// visits is [n_rays / block_rays, 2]: rows visited, leaf rows among them.
-// stack_depth (1..64) bounds the stack walk's stack; the skip walk ignores
-// it.  Returns cudaGetLastError() after the launch.
+// visits is [n_rays / block_rays, 3]: rows on the path, leaf rows among
+// them, windows walked (one row each but for spec / specb).  arg is the
+// stack walk's stack depth (1..64), ilv's packets per block (1..4), or
+// spec's / specb's rows per window (1..8; specb: at most n_entries); the
+// skip walk ignores it.  Returns cudaGetLastError() after the launch.
 extern "C" int stream_walk_threads_per_block() { return kThreads; }
 
-#define SURF_STREAM_ENTRY(NAME, ANY, STACK)                                          \
+#define SURF_STREAM_ENTRY(NAME, WALK, ANY)                                           \
   extern "C" int NAME(const float* stream, int n_entries, const float* rays,         \
-                      const int* act, int n_rays, int block_rays, int stack_depth,   \
-                      float* t, int* r, float* u, float* v, int* visits,             \
-                      cudaStream_t cs) {                                             \
-    return dispatch<ANY, STACK>(stream, n_entries, rays, act, n_rays, block_rays,    \
-                                stack_depth, t, r, u, v, visits, cs);                \
+                      const int* act, int n_rays, int block_rays, int arg, float* t, \
+                      int* r, float* u, float* v, int* visits, cudaStream_t cs) {    \
+    return dispatch<WALK, ANY>(Args{stream, n_entries, rays, act, n_rays,            \
+                                    block_rays, arg, t, r, u, v, visits, cs});       \
   }
 
-SURF_STREAM_ENTRY(stream_walk_skip_closest, false, false)
-SURF_STREAM_ENTRY(stream_walk_skip_any, true, false)
-SURF_STREAM_ENTRY(stream_walk_stack_closest, false, true)
-SURF_STREAM_ENTRY(stream_walk_stack_any, true, true)
+SURF_STREAM_ENTRY(stream_walk_skip_closest, kSkip, false)
+SURF_STREAM_ENTRY(stream_walk_skip_any, kSkip, true)
+SURF_STREAM_ENTRY(stream_walk_stack_closest, kStack, false)
+SURF_STREAM_ENTRY(stream_walk_stack_any, kStack, true)
+SURF_STREAM_ENTRY(stream_walk_ilv_closest, kIlv, false)
+SURF_STREAM_ENTRY(stream_walk_ilv_any, kIlv, true)
+SURF_STREAM_ENTRY(stream_walk_spec_closest, kSpec, false)
+SURF_STREAM_ENTRY(stream_walk_spec_any, kSpec, true)
+SURF_STREAM_ENTRY(stream_walk_specb_closest, kSpecb, false)
+SURF_STREAM_ENTRY(stream_walk_specb_any, kSpecb, true)

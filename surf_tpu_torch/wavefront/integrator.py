@@ -1,8 +1,9 @@
 """The wavefront path-tracing integrator (port of
 ``surf_tpu.wavefront.integrator``, forward path).  A flattened
 ``TorchScene`` is traversed by a ``bits*`` algo (``"bitsru8"`` by default),
-``"skip"`` or ``"stack"``, or with ``use_wide=False`` by the binary packet
-walk; a pure
+a stream walk (``"skip"``, ``"stack"`` or a TPU schedule of the skip walk:
+``"skip2"``, ``"ilvN"``, ``"specN"``, ``"specbN"``), or with
+``use_wide=False`` by the binary packet walk; a pure
 two-level ``PureScene`` by ``algo="twolevelp"``, whose shading re-derives
 world geometry per lane from the shared object-space meshes and the hit
 instance's forward transform.
@@ -32,6 +33,7 @@ from ..accel.bits import Hit, parse_algo, traverse_bits
 from ..accel.bvh_walk import traverse_binary
 from ..accel.instanced import traverse_instanced
 from ..accel.stream import traverse_stream
+from ..accel.stream_walk import ALGOS as STREAM_ALGOS
 from ..core import rng, sampling
 from ..core.vecmath import (
     F32_EPSILON,
@@ -47,8 +49,10 @@ from ..scene.camera import CameraParams, ViewPlane, view_plane
 from ..scene.compile import PureScene, TorchScene
 
 # The ported algos besides the bits* family, whose every string that
-# JAX's traverse_wide accepts renders (accel.bits.parse_algo).
-ALGOS = ("skip", "stack", "twolevelp")
+# JAX's traverse_wide accepts renders (accel.bits.parse_algo): the stream
+# walks (accel.stream_walk.ALGOS: skip, stack, skip2, ilv1-4, spec1-8,
+# specb1-8) and twolevelp.
+ALGOS = (*STREAM_ALGOS, "twolevelp")
 # bench.py's render knobs (wave cap, packet size, compaction, width ladder,
 # lane order), applied with RenderConfig._replace(**BENCH_KNOBS).
 BENCH_KNOBS = dict(wave_limit=32, block_rays=2048, compact=True,
@@ -79,7 +83,7 @@ class RenderConfig(NamedTuple):
     the forward path reads, with the same names and defaults.  ``algo``
     names the traversal, with JAX's precedence: "twolevelp" (the only one
     of a PureScene) goes to the instanced walk; else ``use_wide`` picks a
-    ``bits*`` algo, "skip" or "stack" over the 8-wide layouts, and
+    ``bits*`` algo or a stream walk over the 8-wide layouts, and
     ``use_wide=False`` the binary packet walk.  ``cap_rows`` and
     ``pair_groups`` size the bits lists (0: BITS_CAP_ROWS, PAIR_GROUPS).  ``for_scene`` picks
     "bitsru8" or "twolevelp" by the scene's type (``algo_of``), and
@@ -583,7 +587,7 @@ def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
     large spp budget into several calls gives the same image as one call."""
     pure = isinstance(scene, PureScene)
     if not is_ported(cfg.algo) or pure != (cfg.algo == "twolevelp"):
-        fits = "twolevelp" if pure else "bits*, skip, stack or use_wide=False"
+        fits = "twolevelp" if pure else "bits*, a stream walk or use_wide=False"
         raise ValueError(f"algo={cfg.algo!r} does not render a {type(scene).__name__} "
                          f"(it renders with {fits}; the ported algos are {ALGOS} and "
                          f"every bits* string of traverse_wide)")

@@ -1,6 +1,7 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
-rows, the stream walks, the binary walk) against their plain PyTorch
-versions, on the card.
+rows, the stream walks with the TPU schedules, the binary walk, the
+dependent-cursor microbenchmark) against their plain PyTorch versions, on
+the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -21,6 +22,7 @@ from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
+from surf_tpu_torch.micro import dep_chain
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
@@ -258,9 +260,74 @@ def test_stream_walk_matches_plain_bit_exact(indoor, cuda, algo, any_hit):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     visits = got[4]
-    assert visits.shape == (4, 2) and visits[1].tolist() == [0, 0]
+    assert visits.shape == (4, 3) and visits[1].tolist() == [0, 0, 0]
     assert (visits[[0, 2, 3], 1] > 0).all() and (got[1][2048:4096] == -1).all()
-    assert (got[1] >= 0).any()
+    assert torch.equal(visits[:, 0], visits[:, 2]) and (got[1] >= 0).any()
+
+
+# The TPU schedules beyond those chip_smoke.py times (skip2, ilv2, ilv4,
+# spec2, spec4, specb4, specb8): every ilvN, and the window's ends.
+SCHEDULES = ["skip2", "ilv1", "ilv2", "ilv3", "ilv4", "spec1", "spec3", "spec8", "specb1",
+             "specb5", "specb8"]
+
+
+def _schedule_rays(cuda, block):
+    """4 packets and 300 rays: random rays (90% active; ``_rays`` kills rays
+    2048-4095), the second packet all dead, the third from inside the
+    indoor room, where every ray hits (t_max 1e30 in any mode)."""
+    o, d, act = _rays(4 * block + 300, seed=4, device=cuda)
+    act[block:2 * block] = False
+    act[2 * block:3 * block] = True
+    rng = np.random.default_rng(5)
+    o[2 * block:3 * block] = torch.from_numpy(
+        (np.array([0, 1, 0]) + rng.uniform(-0.2, 0.2, (block, 3))).astype(np.float32)).to(cuda)
+    return o, d, act
+
+
+@pytest.mark.parametrize("block", [1024, 2048])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("algo", SCHEDULES)
+def test_schedule_matches_plain_bit_exact(indoor, cuda, algo, any_hit, block):
+    """Each schedule's entry point against its plain version, bit for bit
+    with equal counts; skip2 / ilvN also equal to the skip kernel."""
+    o, d, act = _schedule_rays(cuda, block)
+    tmax = torch.full((o.shape[0],), 6.0 if any_hit else 1e30, device=cuda)
+    tmax[2 * block:3 * block] = 1e30
+    rays, a = stream.pack_rays(o, bits.nudge(d), tmax, act, block)
+    args = (indoor.stream.stream, rays, a, block, algo, any_hit, indoor.stream.max_depth)
+    walk, _ = stream_walk.parse_algo(algo)
+    name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"
+    stream_walk.reset_launches()
+    got = stream_walk.stream_walk(*args)
+    torch.cuda.synchronize()
+    assert stream_walk.LAUNCHES[name] == 1
+    want = stream_walk.stream_walk_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    visits = got[4]
+    assert visits.shape == (5, 3) and visits[1].tolist() == [0, 0, 0]
+    assert (got[1][block:2 * block] == -1).all() and (got[1][2 * block:3 * block] >= 0).all()
+    if walk == "ilv":
+        skip = stream_walk.stream_walk(*args[:4], "skip", *args[5:])
+        for g, w in zip(got, skip):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("variant", dep_chain.VARIANTS)
+def test_dep_chain_matches_plain(cuda, variant):
+    """The microbenchmark's kernel against its plain version at 512 rows,
+    bit for bit (hits and the row the cursor ends at), and its launch
+    count."""
+    rows_b, rows_w, rays = dep_chain.make_data(cuda)
+    table = rows_w if variant.startswith("depb") else rows_b
+    dep_chain.reset_launches()
+    got = dep_chain.dep_chain(table, rays, variant, dep_chain.CHECK_ROWS)
+    torch.cuda.synchronize()
+    assert dep_chain.LAUNCHES[f"dep_chain_{variant}"] == 1
+    want = dep_chain.dep_chain_plain(table, rays, variant, dep_chain.CHECK_ROWS)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1] >= 0).any() == (variant != "dep0")
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
@@ -281,8 +348,9 @@ def test_bvh_walk_matches_plain_bit_exact(indoor, cuda, any_hit):
     assert (got[1][1024:2048] == -1).all() and (got[1] >= 0).any()
 
 
-@pytest.mark.parametrize("walk", [dict(algo="skip"), dict(algo="stack"), dict(use_wide=False)],
-                         ids=["skip", "stack", "binary"])
+@pytest.mark.parametrize("walk", [dict(algo="skip"), dict(algo="stack"), dict(use_wide=False),
+                                  dict(algo="ilv2"), dict(algo="spec4")],
+                         ids=["skip", "stack", "binary", "ilv2", "spec4"])
 def test_walk_render_through_kernel_matches_plain(indoor, cuda, walk):
     """A 64x64 render with the bench knobs but a wave cap of 8 (the plain
     walks take a second a call on the card) through each walk's kernel

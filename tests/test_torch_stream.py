@@ -227,4 +227,4 @@ def test_stream_walk_rejects_bad_inputs(box):
     with pytest.raises(ValueError):
         stream_walk(ts.stream.stream, rays, act, 1000)
     with pytest.raises(ValueError):
-        stream_walk(ts.stream.stream, rays, act, 1024, algo="skip2")
+        stream_walk(ts.stream.stream, rays, act, 1024, algo="skip3")

@@ -84,9 +84,10 @@ def test_algo_checks(box):
     cfg = RenderConfig.for_scene(box, 8, 8, 1, use_defocus=False)
     pure = compile_scene(builtin.make_diffuse_box_scene(), CPU, two_level="pure")
     bad = [(box, cfg._replace(algo=a)) for a in
-           ("skip2", "spec2", "specb2", "ilv2", "twolevel", "twolevelp",
+           ("skip3", "ilv0", "ilv5", "spec0", "specb16", "twolevel", "twolevelp",
             "bitsq", "bitsru28", "bitsp2", "bitsr2")]
-    bad += [(pure, cfg._replace(algo=a)) for a in ("bitsru8", "bits", "skip", "stack")]
+    bad += [(pure, cfg._replace(algo=a)) for a in ("bitsru8", "bits", "skip", "stack",
+                                                   "skip2", "spec2")]
     bad += [(box, cfg._replace(algo="bitsq", use_wide=False))]
     for scene, c in bad:
         with pytest.raises(ValueError, match="ported algos"):
