@@ -99,7 +99,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      variant's kernel against its plain version at 512 rows (bit-identical
      or the phase fails) and both timed there (the kernels line's ms,
      plain ms, launches and bound), then the kernel's ms at two sizes and
-     the slope in ns per row.
+     the slope in ns per row;
+  7. leaf micro: the leaf-row microbenchmarks.  micro/leaf_groups.py: each
+     variant's kernel against its plain version at 32 and 256 groups a
+     packet (bit-identical or the phase fails), timed at both, the slope
+     in ns per group (the kernels line: 256 groups); micro/leaf_visit.py:
+     each variant's kernel against its plain version at 512 visits
+     (bit-identical; recip within leaf_visit.RECIP_GATE), timed at 32768
+     visits (the kernels line) and the slope to 98304.  Each entry point
+     must launch in the timed runs.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -118,7 +126,7 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
-from surf_tpu_torch.micro import dep_chain
+from surf_tpu_torch.micro import dep_chain, leaf_groups, leaf_visit
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -184,6 +192,13 @@ SCHEDULE_OF = {"ilv": "ilv4", "spec": "spec4", "specb": "specb8"}
 # num 6, the division 1, the hit point 6, u 6, v 6, then |den| and 7
 # compares (u + v's add among them).
 LEAN_FLOPS = 38
+# Phase 7: the record test of each leaf micro variant, counted from
+# leaf_micro.cu: Moller-Trumbore without its division (leaf_groups nodiv,
+# f = a), and extonly's 8 adds, 1 multiply and 1 compare.
+GROUP_FLOPS = {"full": MT_FLOPS, "nodiv": MT_FLOPS - 1, "noext": MT_FLOPS,
+               "halftri": MT_FLOPS}
+VISIT_FLOPS = {"empty": 0, "full": MT_FLOPS, "recip": MT_FLOPS, "nodiv": MT_FLOPS,
+               "extonly": 10, "half": MT_FLOPS}
 
 
 def say(msg: str) -> None:
@@ -1121,6 +1136,41 @@ def phase_micro(dev: torch.device) -> dict:
     return out
 
 
+def phase_leaf_micro(dev: torch.device) -> dict:
+    """The leaf-row microbenchmarks; per entry point the kernels line's
+    numbers at the size the scripts time: leaf_groups at 256 groups a
+    packet, leaf_visit at 32768 visits.  Bounds count the record tests the
+    variant makes (halftri's 4 list entries a group, half's 4 records a
+    visit; empty none) and the bytes: leaf_groups the distinct rows read
+    (noext: row 0), the list entries tested, the counts, the rays, t_max
+    and the outputs; leaf_visit the 512 rows (empty: one 32-byte sector of
+    each, its lanes 9/10), the rays and the outputs."""
+    out = {}
+    pk, rays = leaf_groups.PACKETS, leaf_groups.PACKETS * leaf_groups.RAYS
+    trip = leaf_groups.TRIPS[1]
+    for v, r in leaf_groups.measure(dev, say).items():
+        entries = trip * leaf_groups.entries(v)
+        flops = rays * entries * leaf_groups.TRIS * GROUP_FLOPS[v]
+        n_bytes = r["rows"] * 512 + pk * entries * 4 + pk * 4 + rays * 4 * (6 + 1 + 4)
+        out[f"leaf_groups_{v}"] = dict(max_abs_err=0.0, ms=r["ms"][1], plain_ms=r["plain_ms"],
+                                       launches=r["launches"], bound=_bound(flops, n_bytes))
+    rows = min(leaf_visit.ITERS, leaf_visit.D_ROWS)
+    for v, r in leaf_visit.measure(dev, say).items():
+        flops = leaf_visit.ITERS * leaf_visit.RAYS * leaf_visit.tests(v) * VISIT_FLOPS[v]
+        n_bytes = (rows * (32 if v == "empty" else 512) + 24 * leaf_visit.RAYS
+                   + 8 * leaf_visit.RAYS + 4)
+        out[f"leaf_visit_{v}"] = dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                      plain_ms=r["plain_ms"], launches=r["launches"],
+                                      bound=_bound(flops, n_bytes))
+    for name, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+        if rec["launches"] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched in its timed runs")
+        say(f"[7 leaf micro] {name}: kernel {rec['ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']}), plain {rec['plain_ms']:.1f} ms, {rec['launches']} launches")
+    return out
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -1142,6 +1192,13 @@ KERNELS = {
        for m in ("closest", "any")},
     **{f"dep_chain_{v}": ("surf_tpu_torch/csrc/dep_micro.cu", "scripts/tpu_dep_micro.py:222")
        for v in dep_chain.VARIANTS},
+    # leaf_groups_full also serves scripts/tpu_leaf_kernel_micro.py:69, whose
+    # kernel was make_kernel("full") (micro/leaf_groups.py)
+    **{f"leaf_groups_{v}": ("surf_tpu_torch/csrc/leaf_micro.cu",
+                            "scripts/tpu_leaf_variants_micro.py:157")
+       for v in leaf_groups.VARIANTS},
+    **{f"leaf_visit_{v}": ("surf_tpu_torch/csrc/leaf_micro.cu", "scripts/tpu_leaf_micro.py:141")
+       for v in leaf_visit.VARIANTS},
 }
 
 
@@ -1177,9 +1234,10 @@ def main() -> int:
     kernels.update(timed("3f schedules", phase_schedule_kernel, dev))
     launches.update(timed("4f schedules", phase_schedule_bench, dev, bench_img))
     timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
-    micro = timed("6 micro", phase_micro, dev)
-    kernels.update(micro)
-    launches.update({k: v.pop("launches") for k, v in micro.items()})
+    for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro)):
+        micro = timed(label, phase, dev)
+        kernels.update(micro)
+        launches.update({k: v.pop("launches") for k, v in micro.items()})
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

@@ -27,13 +27,16 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# The C entry points of stream_walk.cu (one kernel template per walk) and
-# dep_micro.cu (one per variant); their wrappers count launches under these
-# names.
+# The C entry points of stream_walk.cu (one kernel template per walk),
+# dep_micro.cu and leaf_micro.cu (one per variant); their wrappers count
+# launches under these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
                                                      "depb8", "depb8all"))
+GROUP_ENTRY_POINTS = tuple(f"leaf_groups_{v}" for v in ("full", "nodiv", "noext", "halftri"))
+VISIT_ENTRY_POINTS = tuple(f"leaf_visit_{v}" for v in ("empty", "full", "recip", "nodiv",
+                                                        "extonly", "half"))
 
 _LIB: ctypes.CDLL | None = None
 
@@ -121,10 +124,15 @@ def library() -> ctypes.CDLL:
             # visits, stream
             fn.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in DEP_ENTRY_POINTS:
+        for name in DEP_ENTRY_POINTS + VISIT_ENTRY_POINTS:
             fn = getattr(lib, name)
-            # table, n_rows, rays, n_steps, t, r, end, stream
+            # table, n_rows, rays, n_steps (leaf_visit: iters), t, r, end, stream
             fn.argtypes = [p, i, p, i, p, p, p, p]
+            fn.restype = i
+        for name in GROUP_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            # table, lists, cap8, counts, rays, t_max, n_rays, t, r, u, v, stream
+            fn.argtypes = [p, p, i, p, p, p, i, p, p, p, p, p]
             fn.restype = i
         for name in ("bvh_walk_closest", "bvh_walk_any"):
             fn = getattr(lib, name)

@@ -158,10 +158,10 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
     return t, r, u, v
 
 
-def _mt_poly(rec, o, d):
+def _mt_poly(rec, o, d, recip=None):
     """The Möller–Trumbore polynomial in the operand order of
     ``pallas_wide.py:1049-1062`` (the kernels' ``mt_hit``), in the dtype of
-    its inputs: (a, u, v, t)."""
+    its inputs: (a, u, v, t).  ``recip`` maps a to f (default 1 / a)."""
     ox, oy, oz = o
     dx, dy, dz = d
     v0x, v0y, v0z = rec[..., 0], rec[..., 1], rec[..., 2]
@@ -171,7 +171,7 @@ def _mt_poly(rec, o, d):
     hy = dz * e2x - dx * e2z
     hz = dx * e2y - dy * e2x
     a = e1x * hx + e1y * hy + e1z * hz
-    f = torch.ones_like(a) / a
+    f = torch.ones_like(a) / a if recip is None else recip(a)
     sx = ox - v0x
     sy = oy - v0y
     sz = oz - v0z
@@ -189,16 +189,17 @@ def _mt_ok(a, u, v, t):
             & (u + v <= 1.0) & (t >= EPS))
 
 
-def mt_records(rec: torch.Tensor, o, d):
+def mt_records(rec: torch.Tensor, o, d, recip=None):
     """Möller–Trumbore of rays against triangle records (the kernels'
-    ``mt_hit``).
+    ``mt_hit``; ``recip`` as ``_mt_poly``'s, the microbenchmarks' stand-ins
+    for the division).
 
     rec [..., M, 16] (v0, e1, e2 in lanes 0-8); o and d are (x, y, z)
     triples that broadcast against rec[..., 0] (e.g. rec [G, 1, M, 16] with
     [G, R, 1], or rec [R, M, 16] with [R, 1]).  Returns (t, u, v, ok) of
     the broadcast shape; ok is every test but the t_max bound: |det| >= eps,
     the barycentric range and t >= eps."""
-    a, u, v, t = _mt_poly(rec, o, d)
+    a, u, v, t = _mt_poly(rec, o, d, recip)
     return t, u, v, _mt_ok(a, u, v, t)
 
 

@@ -179,7 +179,7 @@ def _lean_records(rec, o3, d3):
     return t, ok
 
 
-def _merge(t, ok, best_t, best_r, rec0):
+def merge_records(t, ok, best_t, best_r, rec0):
     """The records in order, each replacing the best on a strictly smaller
     t: the first record with the least t below the running best."""
     cand = ok & (t < best_t[:, None])
@@ -216,7 +216,7 @@ def dep_chain_plain(table: torch.Tensor, rays: torch.Tensor, variant: str,
                 t, ok = _lean_records(rec, o3, d3)
             else:
                 t, _, _, ok = mt_records(rec, o3, d3)
-            best_t, best_r = _merge(t, ok, best_t, best_r, (p + r) * 8)
+            best_t, best_r = merge_records(t, ok, best_t, best_r, (p + r) * 8)
         if variant == "dep1":
             nxt = rows_i[p, SKA]
         elif variant == "depb8all":

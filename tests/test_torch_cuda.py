@@ -1,7 +1,7 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
 rows, the stream walks with the TPU schedules, the binary walk, the
-dependent-cursor microbenchmark) against their plain PyTorch versions, on
-the card.
+dependent-cursor and leaf-row microbenchmarks) against their plain PyTorch
+versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -22,7 +22,7 @@ from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
-from surf_tpu_torch.micro import dep_chain
+from surf_tpu_torch.micro import dep_chain, leaf_groups, leaf_visit
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
@@ -328,6 +328,47 @@ def test_dep_chain_matches_plain(cuda, variant):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert (got[1] >= 0).any() == (variant != "dep0")
+
+
+@pytest.mark.parametrize("variant", leaf_groups.VARIANTS)
+def test_leaf_groups_matches_plain(cuda, variant):
+    """The leaf-group kernel against its plain version at cap8 = 8, with
+    per-packet counts 0..10 (0: no group; 9, 10: clamped to cap8), bit for
+    bit, and its launch count."""
+    data = leaf_groups.make_data(cuda)
+    lists = data.lists[:, :8].contiguous()
+    counts = (torch.arange(leaf_groups.PACKETS, device=cuda) % 11).to(torch.int32)
+    args = (data.table, lists, counts, data.rays, data.t_max, variant, 8)
+    leaf_groups.reset_launches()
+    got = leaf_groups.leaf_groups(*args)
+    torch.cuda.synchronize()
+    assert leaf_groups.LAUNCHES[f"leaf_groups_{variant}"] == 1
+    want = leaf_groups.leaf_groups_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][0] == -1).all() and (got[1][1:] >= 0).any()
+
+
+@pytest.mark.parametrize("variant", leaf_visit.VARIANTS)
+@pytest.mark.parametrize("iters", [256, 200])
+def test_leaf_visit_matches_plain(cuda, variant, iters):
+    """The leaf-visit kernel against its plain version at 256 visits and at
+    200 (224 visits: the loop tests p < iters every 32), bit for bit, or
+    for recip within leaf_visit.RECIP_GATE; and its launch count."""
+    table, rays = leaf_visit.make_data(cuda)
+    leaf_visit.reset_launches()
+    got = leaf_visit.leaf_visit(table, rays, variant, iters)
+    torch.cuda.synchronize()
+    assert leaf_visit.LAUNCHES[f"leaf_visit_{variant}"] == 1
+    want = leaf_visit.leaf_visit_plain(table, rays, variant, iters)
+    assert got[2].tolist() == want[2].tolist() == [-(-iters // 32) * 32]
+    if variant == "recip":
+        gate = leaf_visit.recip_gate(got, want)
+        assert gate["ok"], gate
+    else:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert (got[1] >= 0).any() == (variant != "empty")
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
