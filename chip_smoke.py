@@ -58,7 +58,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      instanced kernel and through its plain version (the same gates), and
      the diffuse box scene twolevelp against flattened bitsru8 (under 1%
      of pixels off by more than 1e-3, energy within 0.5%);
-  5c. walk parity: the indoor scene at 64x64 @ 2 spp with the bench knobs
+  5c. walk parity: the indoor scene at 32x32 @ 2 spp with the bench knobs
      through each new walk's kernel and through its plain version on the
      card (the gates of phase 5; bit equality expected);
   3e. leaf-row variants: every further entry point of the leaf-row kernel
@@ -67,12 +67,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      A carry-in entry point resumes over each list's rows past the first
      CARRY_ROWS from a round-A call of its non-carry twin over those rows
      (the sweeps all in round A), and must then equal the one-call result;
-  4e. bits benches: one 512x512 @ 16 spp frame at phase 4's seeds through
+  4e. bits benches: one 512x512 @ 8 spp frame at phase 4's seeds through
      each algo of BITS_ALGOS (frame time, rays/s, energy, launches per
      entry point, peak memory): those of EXACT_ALGOS within 0.1% of
-     pixels (ties) of phase 4's bitsru8 image; those of ROUNDING_ALGOS,
-     whose record test rounds otherwise, with their energy relative to it
-     inside ENERGY_BAND and their pixels' distance printed; then a
+     pixels (ties) of a bitsru8 image of the same spp and seeds; those of
+     ROUNDING_ALGOS, whose record test rounds otherwise, with their energy
+     relative to it inside ENERGY_BAND and their pixels' distance printed;
+     then a
      512x512 @ 1 spp frame through each algo of CARRY_ALGOS (the carry-in
      entry points no frame above launches), held the same way to a 1 spp
      bitsru8 frame at the same seeds.  An entry point's launches in the
@@ -92,7 +93,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   4f. schedule benches: one 512x512 @ 16 spp frame through each of
      SCHEDULE_BENCH at phase 4's seeds, held to phase 4's bitsru8 image by
      phase 4d's gates: frame time, rays/s, energy, launches, peak memory;
-  5f. schedule parity: 64x64 @ 2 spp through SCHEDULE_PARITY with the
+  5f. schedule parity: 32x32 @ 2 spp through SCHEDULE_PARITY with the
      kernel and with the plain version (skip2 / ilvN: phase 5c's plain
      skip render, the same function): bit equality or the phase fails;
   6. micro: the dependent-cursor microbenchmark (micro/dep_chain.py): each
@@ -107,7 +108,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      each variant's kernel against its plain version at 512 visits
      (bit-identical; recip within leaf_visit.RECIP_GATE), timed at 32768
      visits (the kernels line) and the slope to 98304.  Each entry point
-     must launch in the timed runs.
+     must launch in the timed runs;
+  8. walk micro: the walk-visit microbenchmarks, each entry point's kernel
+     against its plain version, bit-identical or the phase fails:
+     micro/visit_cost.py at 512 rows, timed at 32768 (the kernels line)
+     and 98304 rows; micro/quant_visit.py at 512 visits on the script's
+     table and on its jump table, timed at 4096 (the kernels line) and
+     12288 visits; micro/stack_visit.py at 32 visits, timed at 2048 (the
+     kernels line) and 6144, its end cursor and stack pointer at 2048
+     equal to the plain version's; micro/mask_reduce.py at 2048 visits on
+     the script's data and on its mixed data, timed at 2048 (the kernels
+     line) and 6144.  The slope in ns a row or visit; each entry point must
+     launch in the timed runs.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -126,7 +138,8 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
-from surf_tpu_torch.micro import dep_chain, leaf_groups, leaf_visit
+from surf_tpu_torch.micro import (_visit, dep_chain, leaf_groups, leaf_visit, mask_reduce,
+                                  quant_visit, stack_visit, visit_cost)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -181,6 +194,12 @@ ROUNDING_ALGOS = ("bitsw", "bitswi", "bitsh", "bits2w", "bits2wi", "bits2h")
 ENERGY_BAND = {"bw": (-0.01, 0.01), "bf16": (-0.40, -0.30)}
 CARRY_ALGOS = ("bits2w", "bits2i", "bits2h", "bits2wi")
 PARITY_ALGOS = ("bitsw", "bitsh", "bits2", "bitsp")
+# Phase 4e's frames: 8 spp each, held to a bitsru8 frame of 8 spp at the
+# same seeds (at 16 spp they took 143 s of the script's 1200 s limit).
+BITS_SPP = 8
+# Phases 5c and 5f: the side of their 2 spp renders, whose plain versions
+# (Python loops over the walk's rows) took 132 s and 116 s at 64x64.
+PARITY_W = 32
 # Phases 3f, 4f, 5f: the stream walk's TPU schedules checked, benched and
 # rendered kernel against plain; the schedule whose 3f bounce-set time and
 # 4f launches stand for each entry point in the kernels line.
@@ -199,6 +218,16 @@ GROUP_FLOPS = {"full": MT_FLOPS, "nodiv": MT_FLOPS - 1, "noext": MT_FLOPS,
                "halftri": MT_FLOPS}
 VISIT_FLOPS = {"empty": 0, "full": MT_FLOPS, "recip": MT_FLOPS, "nodiv": MT_FLOPS,
                "extonly": 10, "half": MT_FLOPS}
+# Phase 8, counted from visit_micro.cu: quant_visit's u8 slab does a
+# ray's per-axis a = (lo - o) * inv and b = scale * inv once a visit (9),
+# then per child the planes' t = a + q * b (12) and the slab's 10 min/max
+# and 3 compares (the byte unpacks and converts are integer work);
+# stack_visit's toy slab per child 6 subtracts or multiplies, 10 min/max,
+# 1 compare and 1 add, then 1 compare a value; mask_reduce per child 1
+# multiply and 1 compare, then a += (0.001 x) * mask (2).
+Q8_VISIT_FLOPS = 9
+STACK_CHILD_FLOPS = 18
+MASK_VISIT_FLOPS = 8 * 2 + 2
 
 
 def say(msg: str) -> None:
@@ -771,7 +800,7 @@ def phase_twolevelp_parity(dev: torch.device, w: int = 64, h: int = 64) -> None:
         raise AssertionError("twolevelp render disagrees with the flattened render")
 
 
-def phase_walk_parity(dev: torch.device, w: int = 64, h: int = 64) -> dict:
+def phase_walk_parity(dev: torch.device, w: int = PARITY_W, h: int = PARITY_W) -> dict:
     """Returns each walk's plain-version image."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
@@ -917,18 +946,22 @@ def _bits_frame(scene, cam, dev, algo, w, h, spp, total):
     return img, dt, launches, peak
 
 
-def phase_bits_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
-                     spp: int = SPP) -> dict:
-    """The bench config through each bits algo: one frame at phase 4's
-    second frame's seeds (total_samples 2 * spp), held to its image; then
-    1 spp frames of the carry-in algos, held to a 1 spp bitsru8 frame.
-    Returns each new entry point's launches in the first frame that drives
-    it (the full-spp frame where there is one)."""
+def phase_bits_bench(dev: torch.device, w: int = W, h: int = H, spp: int = BITS_SPP,
+                     total: int = 2 * SPP) -> dict:
+    """The bench config through each bits algo: one frame of ``spp`` at
+    phase 4's second frame's seeds (total_samples 2 * SPP), held to a
+    bitsru8 frame of the same spp and seeds; then 1 spp frames of the
+    carry-in algos, held to a 1 spp bitsru8 frame.  Returns each new entry
+    point's launches in the first frame that drives it (the ``spp`` frame
+    where there is one)."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
     launches, source = {}, {}
+    ref_img, dt, _, _ = _bits_frame(scene, cam, dev, "bitsru8", w, h, spp, total)
+    say(f"[4e bits] bitsru8 reference: {w}x{h} @ {spp} spp, frame {dt:.3f} s, energy "
+        f"{_check_image(ref_img, 'bitsru8 reference', spp)!r}")
     for algo in BITS_ALGOS:
-        img, dt, counts, peak = _bits_frame(scene, cam, dev, algo, w, h, spp, 2 * spp)
+        img, dt, counts, peak = _bits_frame(scene, cam, dev, algo, w, h, spp, total)
         energy = _check_image(img, f"{algo} bench", spp)
         gate = _bits_gate(ref_img, img, algo, f"{algo} bench frame")
         for k, v in counts.items():
@@ -937,9 +970,9 @@ def phase_bits_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
         say(f"[4e bits] {algo}: {w}x{h} @ {spp} spp, frame {dt:.3f} s, "
             f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {counts}, "
             f"peak memory {peak:.2f} GiB; vs bitsru8: {gate}")
-    ref1, _, _, _ = _bits_frame(scene, cam, dev, "bitsru8", w, h, 1, 2 * spp)
+    ref1, _, _, _ = _bits_frame(scene, cam, dev, "bitsru8", w, h, 1, total)
     for algo in CARRY_ALGOS:
-        img, dt, counts, peak = _bits_frame(scene, cam, dev, algo, w, h, 1, 2 * spp)
+        img, dt, counts, peak = _bits_frame(scene, cam, dev, algo, w, h, 1, total)
         energy = _check_image(img, f"{algo} frame", 1)
         gate = _bits_gate(ref1, img, algo, f"{algo} 1 spp frame")
         for k, v in counts.items():
@@ -1080,8 +1113,8 @@ def phase_schedule_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
     return launches
 
 
-def phase_schedule_parity(dev: torch.device, skip_plain=None, w: int = 64,
-                          h: int = 64) -> None:
+def phase_schedule_parity(dev: torch.device, skip_plain=None, w: int = PARITY_W,
+                          h: int = PARITY_W) -> None:
     """skip2 / ilvN's plain version is the skip walk's: with ``skip_plain``,
     phase 5c's plain skip image of the same render, they are held to it."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
@@ -1171,6 +1204,51 @@ def phase_leaf_micro(dev: torch.device) -> dict:
     return out
 
 
+def phase_walk_micro(dev: torch.device) -> dict:
+    """The walk-visit microbenchmarks; per entry point the kernels line's
+    numbers at the size the scripts time (visit_cost at
+    visit_cost.SMOKE_SIZES[0] rows, the others at their ITERS).  Bounds
+    count the operations of the visits made (per ray: visit_cost 1 add a
+    row, the slab's 8 x SLAB_FLOPS, the records' 8 x MT_FLOPS, and the
+    lane sums' adds once a row; quant_visit the f32 or u8 slab and the
+    records; stack_visit's and mask_reduce's toy tests) and the bytes: the
+    32-byte sectors of the lanes each variant reads of the distinct rows
+    it reads, the rays (or x) and the outputs."""
+    out = {}
+    n = visit_cost.SMOKE_SIZES[0]
+    for v, r in visit_cost.measure(dev, say, visit_cost.SMOKE_SIZES).items():
+        per_row = (1 + (8 * SLAB_FLOPS if visit_cost.has_slab(v) else 0)
+                   + (8 * MT_FLOPS if visit_cost.has_mt(v) else 0))
+        flops = n * (_visit.RAYS * per_row + visit_cost.n_ext(v)) + _visit.RAYS
+        n_bytes = (r["rows"] * _visit.row_bytes(visit_cost.lanes(v)) + 24 * _visit.RAYS
+                   + 16 * _visit.RAYS + 8)
+        out[f"visit_cost_{v}"] = dict(r, bound=_bound(flops, n_bytes))
+    for v, r in quant_visit.measure(dev, say).items():
+        per_visit = (8 * SLAB_FLOPS + (Q8_VISIT_FLOPS if v.endswith("q8") else 0)
+                     + (8 * MT_FLOPS if v.startswith("full") else 0))
+        n_bytes = (r["rows"] * _visit.row_bytes(quant_visit.lanes(v)) + 24 * _visit.RAYS
+                   + 8 * _visit.RAYS + 4)
+        out[f"quant_visit_{v}"] = dict(r, bound=_bound(r["visits"] * _visit.RAYS * per_visit,
+                                                        n_bytes))
+    for v, r in stack_visit.measure(dev, say).items():
+        n_bytes = (r["rows"] * _visit.row_bytes(stack_visit.lanes(v)) + 8 * _visit.RAYS + 8)
+        out[f"stack_visit_{v}"] = dict(r, bound=_bound(
+            r["visits"] * _visit.RAYS * (8 * STACK_CHILD_FLOPS + 1), n_bytes))
+    for v, r in mask_reduce.measure(dev, say).items():
+        n_bytes = (r["rows"] * _visit.row_bytes(mask_reduce.lanes(v)) + 8 * _visit.RAYS + 4)
+        out[f"mask_reduce_{v}"] = dict(r, bound=_bound(
+            r["visits"] * _visit.RAYS * MASK_VISIT_FLOPS, n_bytes))
+    for name, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+        rec["max_abs_err"] = 0.0
+        if rec["launches"] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched in its timed runs")
+        say(f"[8 walk micro] {name}: kernel {rec['ms']:.4f} ms, slope {rec['slope_ns']:.2f} ns, "
+            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.1f} ms, "
+            f"{rec['launches']} launches")
+    return out
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -1199,6 +1277,13 @@ KERNELS = {
        for v in leaf_groups.VARIANTS},
     **{f"leaf_visit_{v}": ("surf_tpu_torch/csrc/leaf_micro.cu", "scripts/tpu_leaf_micro.py:141")
        for v in leaf_visit.VARIANTS},
+    **{f"{mod.__name__.rsplit('.', 1)[1]}_{v}": ("surf_tpu_torch/csrc/visit_micro.cu",
+                                                 f"scripts/{script}")
+       for mod, script in ((visit_cost, "tpu_cost_micro.py:227"),
+                           (quant_visit, "tpu_quant_micro.py:203"),
+                           (stack_visit, "tpu_stack_micro.py:81"),
+                           (mask_reduce, "tpu_reduce_micro.py:80"))
+       for v in mod.VARIANTS},
 }
 
 
@@ -1224,7 +1309,7 @@ def main() -> int:
     launches, bench_img = timed("4 bench", phase_bench, dev)
     launches.update(timed("4b twolevelp", phase_twolevelp_bench, dev))
     launches.update(timed("4d walks", phase_walk_bench, dev, bench_img))
-    launches.update(timed("4e bits", phase_bits_bench, dev, bench_img))
+    launches.update(timed("4e bits", phase_bits_bench, dev))
     for name, err in timed("4c capacity", phase_capacity, dev).items():
         kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     timed("5 parity", phase_parity, dev)
@@ -1234,7 +1319,8 @@ def main() -> int:
     kernels.update(timed("3f schedules", phase_schedule_kernel, dev))
     launches.update(timed("4f schedules", phase_schedule_bench, dev, bench_img))
     timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
-    for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro)):
+    for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro),
+                         ("8 walk micro", phase_walk_micro)):
         micro = timed(label, phase, dev)
         kernels.update(micro)
         launches.update({k: v.pop("launches") for k, v in micro.items()})

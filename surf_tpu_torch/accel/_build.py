@@ -28,8 +28,8 @@ NVCC_FLAGS = (
 )
 
 # The C entry points of stream_walk.cu (one kernel template per walk),
-# dep_micro.cu and leaf_micro.cu (one per variant); their wrappers count
-# launches under these names.
+# dep_micro.cu, leaf_micro.cu and visit_micro.cu (one per variant); their
+# wrappers count launches under these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
@@ -37,6 +37,13 @@ DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "
 GROUP_ENTRY_POINTS = tuple(f"leaf_groups_{v}" for v in ("full", "nodiv", "noext", "halftri"))
 VISIT_ENTRY_POINTS = tuple(f"leaf_visit_{v}" for v in ("empty", "full", "recip", "nodiv",
                                                         "extonly", "half"))
+COST_ENTRY_POINTS = tuple(f"visit_cost_{v}" for v in ("shell", "ext48", "ext120", "slab",
+                                                        "slabfma", "mt", "full", "fullred",
+                                                        "bf4", "bf8"))
+QUANT_ENTRY_POINTS = tuple(f"quant_visit_{v}" for v in ("node_f32", "node_q8", "full_f32",
+                                                         "full_q8"))
+STACK_ENTRY_POINTS = tuple(f"stack_visit_push{n}" for n in (0, 1, 2, 4))
+MASK_ENTRY_POINTS = tuple(f"mask_reduce_{v}" for v in ("eight_any", "or_reduce", "max_byte"))
 
 _LIB: ctypes.CDLL | None = None
 
@@ -124,10 +131,21 @@ def library() -> ctypes.CDLL:
             # visits, stream
             fn.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in DEP_ENTRY_POINTS + VISIT_ENTRY_POINTS:
+        for name in DEP_ENTRY_POINTS + VISIT_ENTRY_POINTS + QUANT_ENTRY_POINTS:
             fn = getattr(lib, name)
-            # table, n_rows, rays, n_steps (leaf_visit: iters), t, r, end, stream
+            # table, n_rows, rays, n_steps (leaf_visit, quant_visit: iters), t,
+            # r, end, stream
             fn.argtypes = [p, i, p, i, p, p, p, p]
+            fn.restype = i
+        for name in COST_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            # table, n_rows, rays, rows_total, t, r, acc, boxes, state, stream
+            fn.argtypes = [p, i, p, i, p, p, p, p, p, p]
+            fn.restype = i
+        for name in STACK_ENTRY_POINTS + MASK_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            # table, n_rows, x, iters, o, state (mask_reduce: end), stream
+            fn.argtypes = [p, i, p, i, p, p, p]
             fn.restype = i
         for name in GROUP_ENTRY_POINTS:
             fn = getattr(lib, name)

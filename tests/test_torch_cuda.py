@@ -1,7 +1,7 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
 rows, the stream walks with the TPU schedules, the binary walk, the
-dependent-cursor and leaf-row microbenchmarks) against their plain PyTorch
-versions, on the card.
+dependent-cursor, leaf-row and walk-visit microbenchmarks) against their
+plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -22,7 +22,8 @@ from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
-from surf_tpu_torch.micro import dep_chain, leaf_groups, leaf_visit
+from surf_tpu_torch.micro import (dep_chain, leaf_groups, leaf_visit, mask_reduce,
+                                  quant_visit, stack_visit, visit_cost)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
@@ -369,6 +370,39 @@ def test_leaf_visit_matches_plain(cuda, variant, iters):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert (got[1] >= 0).any() == (variant != "empty")
+
+
+# Each walk-visit entry point: (module, wrapper, data makers, visits of the
+# check; visit_cost's are rows, 520 of them wrap the 512-row table).
+WALK_MICRO = {
+    **{f"visit_cost_{v}": (visit_cost, visit_cost.visit_cost, (visit_cost.make_data,), 520, v)
+       for v in visit_cost.VARIANTS},
+    **{f"quant_visit_{v}": (quant_visit, quant_visit.quant_visit,
+                            (quant_visit.make_data, quant_visit.make_jump_data), 200, v)
+       for v in quant_visit.VARIANTS},
+    **{f"stack_visit_{v}": (stack_visit, stack_visit.stack_visit, (stack_visit.make_data,), 32, v)
+       for v in stack_visit.VARIANTS},
+    **{f"mask_reduce_{v}": (mask_reduce, mask_reduce.mask_reduce,
+                            (mask_reduce.make_data, mask_reduce.make_mixed_data), 200, v)
+       for v in mask_reduce.VARIANTS},
+}
+
+
+@pytest.mark.parametrize("name", list(WALK_MICRO))
+def test_walk_micro_matches_plain(cuda, name):
+    """Each walk-visit microbenchmark kernel against its plain version (the
+    wrapper on CPU tensors) on the script's data and on its test-only data,
+    bit for bit, and its launch count."""
+    mod, fn, makers, n, variant = WALK_MICRO[name]
+    for make in makers:
+        data = make(cuda)
+        mod.reset_launches()
+        got = fn(*data, variant, n)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES[name] == 1
+        want = fn(*(x.cpu() for x in data), variant, n)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
