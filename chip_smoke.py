@@ -119,7 +119,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      equal to the plain version's; micro/mask_reduce.py at 2048 visits on
      the script's data and on its mixed data, timed at 2048 (the kernels
      line) and 6144.  The slope in ns a row or visit; each entry point must
-     launch in the timed runs.
+     launch in the timed runs;
+  9. shape micro: the visit-shape microbenchmarks, each entry point's
+     kernel against its plain version, every output bit-identical (o, the
+     end cursor, the visits whose vote was set) or the phase fails, on the
+     script's data and on the module's vote data at a small size (64
+     visits; visit_bodies 32) and on the script's data at its ITERS (with
+     wide_x's and smem_stack's overflow to inf): micro/visit_parts.py timed
+     at 4096 (the kernels line) and 12288 visits, micro/cond_visit.py and
+     micro/visit_bodies.py at 2048 (the kernels line) and 6144; the slope
+     in ns a visit; each entry point must launch in the timed runs.  Then
+     the SASS of the kernels (cuobjdump): visit_parts any keeps its vote's
+     barrier (base has none), fori0 its zero-trip loop (more loads than
+     base), cond_visit both and cond both bodies (FMNMX and MUFU.RCP), and
+     cond a branch more than both.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -138,8 +151,9 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
-from surf_tpu_torch.micro import (_visit, dep_chain, leaf_groups, leaf_visit, mask_reduce,
-                                  quant_visit, stack_visit, visit_cost)
+from surf_tpu_torch.micro import (_visit, cond_visit, dep_chain, leaf_groups, leaf_visit,
+                                  mask_reduce, quant_visit, stack_visit, visit_bodies,
+                                  visit_cost, visit_parts)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -228,6 +242,14 @@ VISIT_FLOPS = {"empty": 0, "full": MT_FLOPS, "recip": MT_FLOPS, "nodiv": MT_FLOP
 Q8_VISIT_FLOPS = 9
 STACK_CHILD_FLOPS = 18
 MASK_VISIT_FLOPS = 8 * 2 + 2
+# Phase 9, counted from shape_micro.cu, per value: a link of the chain 1
+# multiply, 1 add and 1 compare (the select is a move); a toy box
+# STACK_CHILD_FLOPS; a toy record (mt8) h 9, a 5, the division 1, u 3,
+# v 6, t 2, |a| and 5 compares 6, the add 1; a vote 1 compare.
+LINK_FLOPS = 3
+TOY_MT_FLOPS = 33
+BODY_VISIT_FLOPS = {"bin_sroll": 9 * LINK_FLOPS + 1, "wide_x": 8 * STACK_CHILD_FLOPS + 1,
+                    "wide_bc": STACK_CHILD_FLOPS, "smem_stack": 8 * STACK_CHILD_FLOPS + 1}
 
 
 def say(msg: str) -> None:
@@ -1249,6 +1271,69 @@ def phase_walk_micro(dev: torch.device) -> dict:
     return out
 
 
+def _shape_sass(say) -> None:
+    """The SASS checks of shape_micro.cu's kernels: the parts that the TPU
+    scripts' compiler could drop or restructure are there.  ``both`` runs
+    both bodies on every visit when the leaf flag's predicate feeds only
+    selects, ``cond`` one body when it feeds a branch."""
+    parts = {v: _visit.sass_counts(f"visit_parts_kernelILi{i}E", ("BAR", "LDG"))
+             for i, v in enumerate(visit_parts.VARIANTS)}
+    conds = {v: _visit.sass_counts(f"cond_visit_kernelILi{i}E", ("FMNMX", "MUFU.RCP", "BRA"))
+             for i, v in enumerate(cond_visit.VARIANTS)}
+    flag = {v: _visit.flag_uses(f"cond_visit_kernelILi{i}E", 4 * _visit.LEAF_LANE)
+            for i, v in enumerate(cond_visit.VARIANTS)}
+    say(f"[9 shape micro] SASS visit_parts {parts}; cond_visit {conds}; "
+        f"the leaf flag's predicate read by {flag}")
+    if parts["any"]["BAR"] < 1 or parts["base"]["BAR"] != 0:
+        raise AssertionError("visit_parts any lost its vote's barrier")
+    if parts["fori0"]["LDG"] <= parts["base"]["LDG"]:
+        raise AssertionError("visit_parts fori0 lost its zero-trip loop")
+    if not all(c["FMNMX"] > 0 and c["MUFU.RCP"] > 0 for c in conds.values()):
+        raise AssertionError("a cond_visit kernel lost one of its bodies")
+    if not flag["both"] or "BRA" in flag["both"]:
+        raise AssertionError("cond_visit both branches on the flag: a body is not run every visit")
+    if "BRA" not in flag["cond"]:
+        raise AssertionError("cond_visit cond does not branch on the flag")
+
+
+def phase_shape_micro(dev: torch.device) -> dict:
+    """The visit-shape microbenchmarks; per entry point the kernels line's
+    numbers at the script's ITERS.  Bounds count the operations of the
+    visits made (visit_parts the chain's links and the vote; cond_visit
+    both bodies, or the flag's body, and the vote; visit_bodies the body's
+    tests and the vote) and the bytes: the distinct 32-byte sectors the
+    run read, x and o and the state."""
+    out = {}
+    io_bytes = 8 * _visit.RAYS + 8
+    for v, r in visit_parts.measure(dev, say).items():
+        flops = r["visits"] * _visit.RAYS * (visit_parts.LINKS * LINK_FLOPS
+                                            + visit_parts.votes(v))
+        out[f"visit_parts_{v}"] = dict(r, bound=_bound(flops, 32 * r["sectors"] + io_bytes))
+    slab_flops = 8 * STACK_CHILD_FLOPS
+    mt_flops = 8 * TOY_MT_FLOPS
+    for v, r in cond_visit.measure(dev, say).items():
+        work = (r["visits"] * (slab_flops + mt_flops) if v == "both" else
+                r["leaf_visits"] * mt_flops + (r["visits"] - r["leaf_visits"]) * slab_flops)
+        flops = _visit.RAYS * (work + r["visits"])
+        out[f"cond_visit_{v}"] = dict(r, bound=_bound(flops, 32 * r["sectors"] + io_bytes))
+    for v, r in visit_bodies.measure(dev, say).items():
+        flops = r["visits"] * _visit.RAYS * BODY_VISIT_FLOPS[v]
+        out[f"visit_body_{v}"] = dict(r, bound=_bound(flops, 32 * r["sectors"] + io_bytes))
+    if dev.type == "cuda":
+        say(f"[9 shape micro] SM clock after the timed runs, and its most (MHz): "
+            f"{_visit.card_line('clocks.sm,clocks.max.sm')}")
+        _shape_sass(say)
+    for name, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+        rec["max_abs_err"] = 0.0
+        if rec["launches"] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched in its timed runs")
+        say(f"[9 shape micro] {name}: kernel {rec['ms']:.4f} ms, slope {rec['slope_ns']:.2f} ns, "
+            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.1f} ms, "
+            f"{rec['launches']} launches")
+    return out
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -1283,6 +1368,11 @@ KERNELS = {
                            (quant_visit, "tpu_quant_micro.py:203"),
                            (stack_visit, "tpu_stack_micro.py:81"),
                            (mask_reduce, "tpu_reduce_micro.py:80"))
+       for v in mod.VARIANTS},
+    **{f"{prefix}_{v}": ("surf_tpu_torch/csrc/shape_micro.cu", f"scripts/{script}")
+       for mod, prefix, script in ((visit_parts, "visit_parts", "tpu_visit_micro.py:88"),
+                                   (cond_visit, "cond_visit", "tpu_cond_micro.py:110"),
+                                   (visit_bodies, "visit_body", "tpu_body_micro.py:140"))
        for v in mod.VARIANTS},
 }
 
@@ -1320,7 +1410,8 @@ def main() -> int:
     launches.update(timed("4f schedules", phase_schedule_bench, dev, bench_img))
     timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
     for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro),
-                         ("8 walk micro", phase_walk_micro)):
+                         ("8 walk micro", phase_walk_micro),
+                         ("9 shape micro", phase_shape_micro)):
         micro = timed(label, phase, dev)
         kernels.update(micro)
         launches.update({k: v.pop("launches") for k, v in micro.items()})

@@ -28,8 +28,8 @@ NVCC_FLAGS = (
 )
 
 # The C entry points of stream_walk.cu (one kernel template per walk),
-# dep_micro.cu, leaf_micro.cu and visit_micro.cu (one per variant); their
-# wrappers count launches under these names.
+# dep_micro.cu, leaf_micro.cu, visit_micro.cu and shape_micro.cu (one per
+# variant); their wrappers count launches under these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
@@ -44,6 +44,11 @@ QUANT_ENTRY_POINTS = tuple(f"quant_visit_{v}" for v in ("node_f32", "node_q8", "
                                                          "full_q8"))
 STACK_ENTRY_POINTS = tuple(f"stack_visit_push{n}" for n in (0, 1, 2, 4))
 MASK_ENTRY_POINTS = tuple(f"mask_reduce_{v}" for v in ("eight_any", "or_reduce", "max_byte"))
+PARTS_ENTRY_POINTS = tuple(f"visit_parts_{v}" for v in ("base", "roll", "any", "fori0", "while",
+                                                         "full"))
+COND_ENTRY_POINTS = tuple(f"cond_visit_{v}" for v in ("both", "cond"))
+BODY_ENTRY_POINTS = tuple(f"visit_body_{v}" for v in ("bin_sroll", "wide_x", "wide_bc",
+                                                       "smem_stack"))
 
 _LIB: ctypes.CDLL | None = None
 
@@ -142,7 +147,8 @@ def library() -> ctypes.CDLL:
             # table, n_rows, rays, rows_total, t, r, acc, boxes, state, stream
             fn.argtypes = [p, i, p, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in STACK_ENTRY_POINTS + MASK_ENTRY_POINTS:
+        for name in (STACK_ENTRY_POINTS + MASK_ENTRY_POINTS + PARTS_ENTRY_POINTS
+                     + COND_ENTRY_POINTS + BODY_ENTRY_POINTS):
             fn = getattr(lib, name)
             # table, n_rows, x, iters, o, state (mask_reduce: end), stream
             fn.argtypes = [p, i, p, i, p, p, p]

@@ -398,8 +398,6 @@ quant_visit_kernel(const float* __restrict__ table, int n_rows, const float* __r
 constexpr int kStack = 256;  // the scratch's rows
 constexpr int kSpMax = 200;
 
-__device__ __forceinline__ int floor_mod(int a, int m) { return ((a % m) + m) % m; }
-
 template <int kPush>
 __global__ void __launch_bounds__(kThreads)
 stack_visit_kernel(const float* __restrict__ table, int n_rows, const float* __restrict__ x_in,
@@ -431,13 +429,7 @@ stack_visit_kernel(const float* __restrict__ table, int n_rows, const float* __r
         const float h0 = __ldg(b + 3), h1 = __ldg(b + 4), h2 = __ldg(b + 5);
 #pragma unroll
         for (int r = 0; r < kRays; ++r) {
-          float tmin = surf::nan_min(l0 - x[r], h0 - x[r]);
-          float tmax = surf::nan_max(l0 - x[r], h0 - x[r]);
-          tmin = surf::nan_max(tmin, surf::nan_min(l1 * x[r], h1 * x[r]));
-          tmax = surf::nan_min(tmax, surf::nan_max(l1 * x[r], h1 * x[r]));
-          tmin = surf::nan_max(tmin, surf::nan_min(l2 - x[r], h2 - x[r]));
-          tmax = surf::nan_min(tmax, surf::nan_max(l2 - x[r], h2 - x[r]));
-          res[r] = res[r] + (tmax >= tmin ? x[r] : acc[r]);
+          res[r] = res[r] + (surf::toy_cross(l0, l1, l2, h0, h1, h2, x[r]) ? x[r] : acc[r]);
         }
       }
 #pragma unroll
@@ -455,7 +447,7 @@ stack_visit_kernel(const float* __restrict__ table, int n_rows, const float* __r
       const bool vote = __syncthreads_or(hot);  // also orders the pushes before the pop
       sp = min(sp + (vote ? kPush : 1), kSpMax);
       const int top = s_stack[warp][max(sp - 1, 0)];
-      cur = floor_mod(top + cur, n_rows * 8) + 1;
+      cur = surf::floor_mod(top + cur, n_rows * 8) + 1;
       sp = max(sp - 1, 1);
     }
     it += 16;

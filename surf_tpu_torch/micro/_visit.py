@@ -1,12 +1,18 @@
 """What the walk-visit microbenchmarks (``visit_cost``, ``quant_visit``,
-``stack_visit``, ``mask_reduce``; kernels in ``csrc/visit_micro.cu``)
-share: the table's shape, the input checks, the launch, the slab test's
-reduction in their plain versions, and the timing on the card."""
+``stack_visit``, ``mask_reduce``; kernels in ``csrc/visit_micro.cu``) and
+the visit-shape ones (``visit_parts``, ``cond_visit``, ``visit_bodies``;
+``csrc/shape_micro.cu``) share: the table's shape, the input checks, the
+launch, the slab test's reduction in their plain versions, the
+measurement on the card, and the count of instructions in a compiled
+kernel and the readers of a predicate there."""
 
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
+import time
+from pathlib import Path
 
 import torch
 
@@ -19,6 +25,7 @@ RAYS = 1024                # one (8, 128) packet
 REC = 16
 LEAF_LANE, SKIP_LANE = 9, 10
 FAR = 1e30
+K_VISITS = 16              # visits between two tests of the counter
 
 
 def check(table, vec, vec_shape, variant, variants, n, what, min_rows=1):
@@ -100,6 +107,37 @@ def slab8(row, o, inv, best_t, oinv=None):
     return slab_hits(tn, tf, best_t)
 
 
+def toy_cross(box: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[R, n]: the scripts' toy slab test of each value x [R] against each
+    box (box [n, 6]: lo, hi), planes lo0 - x, lo1 * x, lo2 - x and hi's, in
+    the scripts' order, NaN-propagating: the planes cross."""
+    xc = x[:, None]
+    lo0, lo1, lo2, hi0, hi1, hi2 = (box[:, j] for j in range(6))
+    tmin = torch.minimum(lo0 - xc, hi0 - xc)
+    tmax = torch.maximum(lo0 - xc, hi0 - xc)
+    tmin = torch.maximum(tmin, torch.minimum(lo1 * xc, hi1 * xc))
+    tmax = torch.minimum(tmax, torch.maximum(lo1 * xc, hi1 * xc))
+    tmin = torch.maximum(tmin, torch.minimum(lo2 - xc, hi2 - xc))
+    tmax = torch.minimum(tmax, torch.maximum(lo2 - xc, hi2 - xc))
+    return tmax >= tmin
+
+
+def slab8_extract(box: torch.Tensor, x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``_slab8_extract`` (``tpu_stack_micro.py:23``, ``tpu_body_micro.py:69``):
+    acc plus, box by box (box [8, 6]), x where the planes cross, else acc."""
+    cross = toy_cross(box, x)
+    r = acc
+    for k in range(box.shape[0]):
+        r = r + torch.where(cross[:, k], x, acc)
+    return r
+
+
+def block_visits(iters: int) -> int:
+    """The visits of a run of ``iters`` whose loop tests the visit counter
+    once a block: whole blocks of K_VISITS."""
+    return -(-iters // K_VISITS) * K_VISITS
+
+
 def row_bytes(lanes) -> int:
     """Bytes of a row that reading ``lanes`` needs: its 32-byte sectors."""
     return 32 * len({lane // 8 for lane in lanes})
@@ -116,7 +154,120 @@ def slope_ns(ms, sizes) -> float:
     return (ms[1] - ms[0]) * 1e6 / (sizes[1] - sizes[0])
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def measure_variants(name: str, fn, plain, variants, data, vote_data, sizes, launches: dict,
+                     say=print, counters=()) -> dict:
+    """The measurement of a visit-shape microbenchmark (``fn`` its wrapper,
+    ``plain`` its plain version, entry points ``{name}_{variant}`` counted
+    in ``launches``; sizes = (check, iters, (slope0, slope1)) visits).  Per
+    variant: the kernel against its plain version (every output bit-equal,
+    else ValueError) at ``check`` visits on ``data`` (a second plain call
+    timed there) and on ``vote_data``, and at ``iters``, where the plain
+    version marks the 32-byte sectors it reads (``seen``) and adds to each
+    of ``counters`` (0-d int64 keyword arguments); then, with the launch
+    counts reset just before, the kernel's least ms of 3 calls at both
+    slope sizes, its launches in those runs and the slope in ns a visit.
+    Returns per variant ms (at iters), plain_ms, launches, slope_ns,
+    checksum (sum of o at iters), state (end cursor, votes at iters),
+    finite and check_finite (o's finite values at iters and at check),
+    sectors (distinct sectors read at iters) and the counters."""
+    check, iters, slope_sizes = sizes
+    device = data[0].device
+    out = {}
+    for v in variants:
+        got = fn(*data, v, check)
+        same(got, plain(*data, v, check), f"{name} {v} at {check} visits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(*data, v, check)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got_v = fn(*vote_data, v, check)
+        same(got_v, plain(*vote_data, v, check), f"{name} {v} on the vote data")
+        res = fn(*data, v, iters)
+        seen = torch.zeros(data[0].shape[0], 16, dtype=torch.bool, device=device)
+        counts = {c: torch.zeros((), dtype=torch.int64, device=device) for c in counters}
+        same(res, plain(*data, v, iters, seen=seen, **counts), f"{name} {v} at {iters} visits")
+        out[v] = dict(plain_ms=plain_ms, checksum=float(res[0].sum()), state=res[1].tolist(),
+                      finite=int(torch.isfinite(res[0]).sum()),
+                      check_finite=int(torch.isfinite(got[0]).sum()), sectors=int(seen.sum()),
+                      vote_state=got_v[1].tolist(), **{c: int(n) for c, n in counts.items()})
+    for k in launches:
+        launches[k] = 0
+    for v in variants:
+        ms = [least_ms(lambda n=n: fn(*data, v, n)) for n in slope_sizes]
+        slope = slope_ns(ms, slope_sizes)
+        r = out[v]
+        r.update(ms=ms[0], launches=launches[f"{name}_{v}"], slope_ns=slope)
+        extra = "".join(f", {c} {r[c]}" for c in counters)
+        say(f"[{name}] {v}: bit-identical to plain at {check} visits on both data sets and at "
+            f"{iters} (plain {r['plain_ms']:.1f} ms; vote data (end, votes) "
+            f"{r.pop('vote_state')}; at {iters} (end, votes) {r['state']}, {r['finite']} of "
+            f"{RAYS} values finite{extra}); {slope_sizes[0]} / {slope_sizes[1]} visits "
+            f"{ms[0]:.4f} / {ms[1]:.4f} ms, slope {slope:.2f} ns/visit, "
+            f"checksum={r['checksum']!r}")
+    return out
+
+
+_SASS: dict = {}
+_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+def _sass(kernel: str) -> list:
+    """Per compiled kernel whose mangled name contains ``kernel``
+    (``cuobjdump -sass`` of the kernel library), its instructions in
+    order, each (guard predicate or "", opcode, [operands])."""
+    so = _build.build()
+    if so not in _SASS:
+        tool = Path(_build._nvcc()).with_name("cuobjdump")
+        _SASS[so] = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                                   check=True, timeout=300).stdout
+    return [[(g.strip().lstrip("@"), op, [a.strip() for a in args.split(",") if a.strip()])
+             for g, op, args in _INSTRUCTION.findall(fn)]
+            for fn in _SASS[so].split("Function : ")[1:] if kernel in fn.split(None, 1)[0]]
+
+
+def sass_counts(kernel: str, opcodes) -> dict:
+    """{opcode: count} in the SASS of the kernels whose mangled name
+    contains ``kernel``, an instruction counting for each opcode its name
+    starts with: ``BAR`` counts ``BAR.SYNC`` and ``BAR.RED.OR``."""
+    counts = dict.fromkeys(opcodes, 0)
+    for fn in _sass(kernel):
+        for _, op, _ in fn:
+            for k in counts:
+                counts[k] += op.startswith(k)
+    return counts
+
+
+def _reg(operand: str) -> str:
+    """The register or predicate an operand names: R8.reuse -> R8, !P0 -> P0."""
+    return operand.lstrip("!-|").split(".")[0].rstrip("|")
+
+
+def flag_uses(kernel: str, offset: int) -> list:
+    """The opcodes of the instructions, in order, that read the predicate
+    tested from the word a kernel loads at byte ``offset`` of its row (the
+    first load with that offset, the first ISETP or LOP3 that reads its
+    register into a predicate), up to the straight-line write that
+    replaces the predicate: a BRA among them is a branch on the word."""
+    uses = []
+    for fn in _sass(kernel):
+        load = next(k for k, (_, op, a) in enumerate(fn)
+                    if op.startswith("LDG") and a[1].endswith(f"+{offset:#x}]"))
+        reg = fn[load][2][0]
+        test = next(k for k in range(load + 1, len(fn)) if fn[k][1].startswith(("ISETP", "LOP3"))
+                    and re.fullmatch(r"U?P\d", fn[k][2][0])
+                    and reg in (_reg(a) for a in fn[k][2][1:]))
+        pred = fn[test][2][0]
+        for guard, op, args in fn[test + 1:]:
+            if guard.lstrip("!") == pred or pred in (_reg(a) for a in args[1:]):
+                uses.append(op)
+            if args and args[0] == pred:
+                break
+    return uses
+
+
+def card_line(query: str = "name,power.limit") -> str:
+    """The card's name and power limit (or another ``--query-gpu``), as
+    nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()

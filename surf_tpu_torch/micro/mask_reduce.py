@@ -3,7 +3,7 @@ of ``scripts/tpu_reduce_micro.py`` (``make``, its ``pl.pallas_call`` at
 ``:80``).
 
 One packet of 1024 values x and accumulators a (a = 0.001 x at the start)
-visits rows in blocks of K_VISITS visits while the visit counter < iters.
+visits rows in blocks of 16 visits while the visit counter < iters.
 A visit at cursor i reads row i % 512; child k < 8 hits for a value where
 a * row[k] > x; the packet's 8-bit mask is built three ways (the modes,
 in the script's order):
@@ -48,7 +48,6 @@ from ._visit import D_ROWS, LANE, RAYS
 VARIANTS = ("eight_any", "or_reduce", "max_byte")
 ITERS = 2048                  # the script's visits
 SLOPE_ITERS = (ITERS, 3 * ITERS)
-K_VISITS = 16                 # visits between two tests of the counter
 MILLI = 0.001                 # the script's float32 constant
 
 # Kernel launches since the last reset, per entry point of visit_micro.cu.
@@ -58,11 +57,6 @@ LAUNCHES = dict.fromkeys(_build.MASK_ENTRY_POINTS, 0)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def visits(iters: int) -> int:
-    """The visits of a run of ``iters``: whole blocks of K_VISITS."""
-    return -(-iters // K_VISITS) * K_VISITS
 
 
 def lanes(variant: str) -> set:
@@ -118,7 +112,7 @@ def mask_reduce_plain(table: torch.Tensor, x: torch.Tensor, variant: str, iters:
     a = x * milli
     ax = milli * x
     cur = torch.tensor([3], dtype=torch.int64, device=dev)
-    for _ in range(visits(iters)):
+    for _ in range(_visit.block_visits(iters)):
         pc = cur % table.shape[0]
         if seen is not None:
             seen[pc] = True
@@ -167,7 +161,7 @@ def measure(device: torch.device, say=print) -> dict:
         ms = [_visit.least_ms(lambda n=n: mask_reduce(*data, v, n)) for n in SLOPE_ITERS]
         slope = _visit.slope_ns(ms, SLOPE_ITERS)
         out[v].update(ms=ms[0], launches=LAUNCHES[f"mask_reduce_{v}"], slope_ns=slope,
-                      visits=visits(ITERS))
+                      visits=_visit.block_visits(ITERS))
         mixed_sum, mixed_end = out[v].pop("mixed")
         say(f"[mask_reduce] {v}: bit-identical to plain at {ITERS} visits on both data sets "
             f"(plain {out[v]['plain_ms']:.1f} ms; mixed data: sum(o) {mixed_sum!r}, end "

@@ -3,7 +3,7 @@
 ``:81``, scratch ``(256, 128)`` int32 at ``:86``).
 
 One packet of 1024 values x visits rows of a 512-row U(0, 1) table in
-blocks of K_VISITS visits while the visit counter < iters.  A visit at
+blocks of 16 visits while the visit counter < iters.  A visit at
 cursor i reads row i % 512, runs a toy 8-child slab that accumulates into
 acc (``_slab8_extract``: r = acc + the sum over children of x where the
 child's planes cross, else acc), takes the packet's vote "some value's
@@ -48,7 +48,6 @@ VARIANTS = ("push0", "push1", "push2", "push4")
 ITERS = 2048                  # the script's visits
 SLOPE_ITERS = (ITERS, 3 * ITERS)
 CHECK_ITERS = 32              # visits of the kernel-vs-plain check
-K_VISITS = 16                 # visits between two tests of the counter
 STACK = 256                   # the scratch's rows
 SP_MAX = 200
 UNWRITTEN = -2**31            # an entry never pushed
@@ -64,11 +63,6 @@ def reset_launches() -> None:
 
 def pushes(variant: str) -> int:
     return int(variant[len("push"):])
-
-
-def visits(iters: int) -> int:
-    """The visits of a run of ``iters``: whole blocks of K_VISITS."""
-    return -(-iters // K_VISITS) * K_VISITS
 
 
 def lanes(variant: str) -> set:
@@ -110,28 +104,16 @@ def stack_visit_plain(table: torch.Tensor, x: torch.Tensor, variant: str, iters:
     dev = table.device
     n = pushes(variant)
     boxes = table.view(table.shape[0], 8, REC)[:, :, :6]
-    xc = x[:, None]
     acc = x * 0.0
     stack = torch.full((STACK,), UNWRITTEN, dtype=torch.int32, device=dev)
     stack[0] = 0
     cur = torch.tensor([3], dtype=torch.int64, device=dev)
     sp = torch.tensor([1], dtype=torch.int64, device=dev)
-    for _ in range(visits(iters)):
+    for _ in range(_visit.block_visits(iters)):
         pc = cur % table.shape[0]
         if seen is not None:
             seen[pc] = True
-        b = boxes.index_select(0, pc)[0]                  # [8, 6]
-        lo, hi = b[:, 0:3], b[:, 3:6]
-        tmin = torch.minimum(lo[:, 0] - xc, hi[:, 0] - xc)
-        tmax = torch.maximum(lo[:, 0] - xc, hi[:, 0] - xc)
-        tmin = torch.maximum(tmin, torch.minimum(lo[:, 1] * xc, hi[:, 1] * xc))
-        tmax = torch.minimum(tmax, torch.maximum(lo[:, 1] * xc, hi[:, 1] * xc))
-        tmin = torch.maximum(tmin, torch.minimum(lo[:, 2] - xc, hi[:, 2] - xc))
-        tmax = torch.minimum(tmax, torch.maximum(lo[:, 2] - xc, hi[:, 2] - xc))
-        cross = tmax >= tmin                              # [R, 8]
-        r = acc
-        for k in range(8):
-            r = r + torch.where(cross[:, k], x, acc)
+        r = _visit.slab8_extract(boxes.index_select(0, pc)[0], x, acc)
         hot = (r > x).any()
         for q in range(n):
             stack.index_put_(((sp + q).clamp(max=STACK - 1),), (cur * 8 + q).to(torch.int32))
@@ -180,7 +162,7 @@ def measure(device: torch.device, say=print) -> dict:
             raise ValueError(f"stack_visit {v}: end state {res[1].tolist()} at {ITERS} visits, "
                              f"plain {plain[1].tolist()}")
         ms = out[v].pop("ms_slope")
-        out[v].update(visits=visits(ITERS), rows=int(seen.sum()))
+        out[v].update(visits=_visit.block_visits(ITERS), rows=int(seen.sum()))
         say(f"[stack_visit] {v}: bit-identical to plain at {CHECK_ITERS} visits (plain "
             f"{out[v]['plain_ms']:.1f} ms); {SLOPE_ITERS[0]} / {SLOPE_ITERS[1]} visits "
             f"{ms[0]:.4f} / {ms[1]:.4f} ms, slope {out[v]['slope_ns']:.2f} ns/visit; end "

@@ -1,7 +1,7 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
 rows, the stream walks with the TPU schedules, the binary walk, the
-dependent-cursor, leaf-row and walk-visit microbenchmarks) against their
-plain PyTorch versions, on the card.
+dependent-cursor, leaf-row, walk-visit and visit-shape microbenchmarks)
+against their plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -22,8 +22,9 @@ from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
-from surf_tpu_torch.micro import (dep_chain, leaf_groups, leaf_visit, mask_reduce,
-                                  quant_visit, stack_visit, visit_cost)
+from surf_tpu_torch.micro import (cond_visit, dep_chain, leaf_groups, leaf_visit, mask_reduce,
+                                  quant_visit, stack_visit, visit_bodies, visit_cost,
+                                  visit_parts)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
@@ -403,6 +404,37 @@ def test_walk_micro_matches_plain(cuda, name):
         want = fn(*(x.cpu() for x in data), variant, n)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+# name: (module, wrapper, visit counts); visit_bodies also at
+# the script's 2048, where wide_x's and smem_stack's values overflow.
+SHAPE_MICRO = {
+    **{f"visit_parts_{v}": (visit_parts, visit_parts.visit_parts, (64, 4096)) for v in
+       visit_parts.VARIANTS},
+    **{f"cond_visit_{v}": (cond_visit, cond_visit.cond_visit, (64, 2048)) for v in
+       cond_visit.VARIANTS},
+    **{f"visit_body_{v}": (visit_bodies, visit_bodies.visit_body, (32, 2048)) for v in
+       visit_bodies.VARIANTS},
+}
+
+
+@pytest.mark.parametrize("name", list(SHAPE_MICRO))
+def test_shape_micro_matches_plain(cuda, name):
+    """Each visit-shape microbenchmark kernel against its plain version (the
+    wrapper on CPU tensors) on the script's data and on the module's vote
+    data, bit for bit, inf included, and its launch count."""
+    mod, fn, counts = SHAPE_MICRO[name]
+    variant = name.split("_", 2)[2]
+    for make in (mod.make_data, mod.make_vote_data):
+        data = make(cuda)
+        for n in counts:
+            mod.reset_launches()
+            got = fn(*data, variant, n)
+            torch.cuda.synchronize()
+            assert mod.LAUNCHES[name] == 1
+            want = fn(*(x.cpu() for x in data), variant, n)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])

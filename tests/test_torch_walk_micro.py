@@ -44,7 +44,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from surf_tpu_torch.micro import mask_reduce, quant_visit, stack_visit, visit_cost
+from surf_tpu_torch.micro import _visit, mask_reduce, quant_visit, stack_visit, visit_cost
 
 torch.set_num_threads(1)
 
@@ -231,7 +231,7 @@ def _oracle_stack(table, x, n_push, iters):
     acc = x * F32(0)
     stack = [0] + [-2**31] * 255
     cur, sp = 3, 1
-    for _ in range(stack_visit.visits(iters)):
+    for _ in range(_visit.block_visits(iters)):
         box = tab[cur % 512].reshape(8, 16)
         r = acc
         for k in range(8):
@@ -261,7 +261,7 @@ def _oracle_mask(table, x, variant, iters):
     ax = F32(0.001) * x
     scale = np.abs(a).astype(np.float64)
     cur = 3
-    for _ in range(mask_reduce.visits(iters)):
+    for _ in range(_visit.block_visits(iters)):
         hits = (a[:, None] * tab[cur % 512, :8]) > x[:, None]
         words = (hits * (1 << np.arange(8))).sum(1)
         mask = words.max() if variant == "max_byte" else np.bitwise_or.reduce(words)
