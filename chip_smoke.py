@@ -133,6 +133,21 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      barrier (base has none), fori0 its zero-trip loop (more loads than
      base), cond_visit both and cond both bodies (FMNMX and MUFU.RCP), and
      cond a branch more than both.
+  10. mxu micro: the matrix-unit microbenchmarks (micro/mxu_tiles.py,
+     mxu_parts.py, mxu_pltd.py), the port's tensor-core kernels: each entry
+     point's kernel against its plain version on the first 4 blocks of the
+     script's data, on the module's tmax data (mxu_tiles also its trips
+     data) and on the script's whole data, within micro._mxu's MXU_GATE
+     (3xTF32) or BF16_GATE (dotbf16), epionly bit-identical, or the phase
+     fails; timed at the scripts' sizes (4096 tiles a case; 64 x 16; 256 x
+     16) in ms (the least of 3 means of 10 back-to-back calls; single
+     calls printed beside) and ps a test, the plain version there, and the
+     dot alone as one torch.bmm (float32 without and with TF32; bf16 for
+     dotbf16: the kernels line's library_ms is the float32 one, bf16's for
+     dotbf16).
+     Then the SASS: each kernel's HMMA count at least 3 x 6 x 4 a tile for
+     the f32 dots (one tile body for dyn), 6 x 4 a tile for bf16, none for
+     epionly.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -151,9 +166,10 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
-from surf_tpu_torch.micro import (_visit, cond_visit, dep_chain, leaf_groups, leaf_visit,
-                                  mask_reduce, quant_visit, stack_visit, visit_bodies,
-                                  visit_cost, visit_parts)
+from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, leaf_groups,
+                                  leaf_visit, mask_reduce, mxu_parts, mxu_pltd, mxu_tiles,
+                                  quant_visit, stack_visit, visit_bodies, visit_cost,
+                                  visit_parts)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -168,8 +184,9 @@ BLOCK = BENCH_KNOBS["block_rays"]
 # The least time the card could take for the same work: H100 SXM
 # peaks at 700 W, 67 TFLOP/s FP32 outside the tensor cores and 3.35 TB/s;
 # bf16 arithmetic outside the tensor cores (packed bf16x2) runs at twice
-# the FP32 rate, 133.8 TFLOP/s (NVIDIA's H100 data sheet).  No ray test is
-# a matrix product, so the tensor cores' rates do not apply.
+# the FP32 rate, 133.8 TFLOP/s (NVIDIA's H100 data sheet).  No ray test of
+# a render path is a matrix product, so the tensor cores' rates apply only
+# to phase 10's matrix-unit micros (PEAK_TC).
 PEAK_FLOPS = {"f32": 67e12, "bf16": 133.8e12}
 PEAK_BYTES = 3.35e12
 MT_FLOPS = 48      # one ray x triangle Moller-Trumbore test (division as one)
@@ -248,6 +265,34 @@ MASK_VISIT_FLOPS = 8 * 2 + 2
 # v 6, t 2, |a| and 5 compares 6, the add 1; a vote 1 compare.
 LINK_FLOPS = 3
 TOY_MT_FLOPS = 33
+# Phase 10: the tensor cores' dense peaks (NVIDIA's H100 SXM data sheet):
+# the f32 dots run as 3xTF32, three TF32 products for each; bf16 at its
+# rate.  A tile's dot is 2 x 256 x 8 x 768 FLOP.  The epilogue, counted
+# from mxu_micro.cu, per test: the division 1, u and v 2 multiplies and 2
+# adds, |den| 1, 7 compares and u + v's add, the select of t, the compare
+# with bt and 2 selects; the DEAD parts' min 1.  The bound is the largest
+# of the dot's, the epilogue's and the bytes' times (the tensor cores and
+# the FP32 units run side by side).
+PEAK_TC = {"tf32": 495e12, "bf16": 989e12}
+TILE_DOT_FLOPS = 2 * _mxu.R * _mxu.K * _mxu.COLS
+EPI_FLOPS = 18
+# Each kernel's SASS: the mangled template name of its entry point
+# (mxu_micro.cu's Mode, whose values are fixed there: kStatic 0, kDyn 1,
+# kDotOnly 2, kEpiOnly 3, kDotBf16 4, kBigDot 5), and the least HMMA count (a tile's f32 dot is 4
+# n8 tiles x 6 blocks x 3 TF32 products; bf16 one product each; dyn's
+# loop body holds at least one tile).
+MXU_SASS = {
+    "mxu_tiles8_static": ("mxu_kernelILi0ELi8EE", 72 * 8),
+    "mxu_tiles8_dyn": ("mxu_kernelILi1ELi8EE", 72),
+    "mxu_tiles16_static": ("mxu_kernelILi0ELi16EE", 72 * 16),
+    "mxu_tiles16_dyn": ("mxu_kernelILi1ELi16EE", 72),
+    "mxu_parts_full": ("mxu_kernelILi0ELi16EE", 72 * 16),
+    "mxu_parts_dotonly": ("mxu_kernelILi2ELi16EE", 72 * 16),
+    "mxu_parts_epionly": ("mxu_kernelILi3ELi16EE", 0),
+    "mxu_parts_dotbf16": ("mxu_kernelILi4ELi16EE", 24 * 16),
+    "mxu_parts_bigdot": ("mxu_kernelILi5ELi16EE", 72 * 16),
+    "mxu_pltd": ("mxu_pltd_kernelILi16EE", 72 * 16),
+}
 BODY_VISIT_FLOPS = {"bin_sroll": 9 * LINK_FLOPS + 1, "wide_x": 8 * STACK_CHILD_FLOPS + 1,
                     "wide_bc": STACK_CHILD_FLOPS, "smem_stack": 8 * STACK_CHILD_FLOPS + 1}
 
@@ -1334,6 +1379,54 @@ def phase_shape_micro(dev: torch.device) -> dict:
     return out
 
 
+def _mxu_sass(say) -> None:
+    """The HMMA count of each matrix-unit kernel: its products were not
+    dropped (the DEAD parts' five unused blocks included), and epionly has
+    none.  Prints the kernels' instruction counts beside them (every
+    opcode starts with "")."""
+    sass = {name: _visit.sass_counts(kernel, ("HMMA", "")) for name, (kernel, _) in
+            MXU_SASS.items()}
+    counts = {name: c["HMMA"] for name, c in sass.items()}
+    say(f"[10 mxu micro] SASS HMMA counts {counts}; instructions "
+        f"{ {name: c[''] for name, c in sass.items()} }")
+    for name, (_, least) in MXU_SASS.items():
+        if counts[name] < least or (least == 0 and counts[name] != 0):
+            raise AssertionError(f"{name}: {counts[name]} HMMA in its SASS, expected "
+                                 f"{'none' if least == 0 else f'at least {least}'}")
+
+
+def phase_mxu_micro(dev: torch.device) -> dict:
+    """The matrix-unit microbenchmarks; per entry point the kernels line's
+    numbers at the script's size.  The bound is the largest of the dot's
+    FLOP over the tensor cores' rate (3xTF32: three TF32 products; bf16;
+    none for epionly), the epilogue's operations (EPI_FLOPS a test, the
+    DEAD parts' 1) over FP32's and the bytes the function needs (rays,
+    panels, tmax where read, the outputs) over the memory rate."""
+    out = {}
+    for mod in (mxu_tiles, mxu_parts, mxu_pltd):
+        out.update(mod.measure(dev, say))
+    if dev.type == "cuda":
+        _mxu_sass(say)
+    for name, rec in out.items():
+        variant = name.rsplit("_", 1)[1]
+        dot = rec["tiles"] * TILE_DOT_FLOPS
+        t_dot = {"epionly": 0.0, "dotbf16": dot / PEAK_TC["bf16"]}.get(variant,
+                                                                        3 * dot / PEAK_TC["tf32"])
+        t_epi = rec["tests"] * (1 if variant in _mxu.DEAD else EPI_FLOPS) / PEAK_FLOPS["f32"]
+        t_bytes = rec["bytes"] / PEAK_BYTES
+        rec["bound_ms"] = max(t_dot, t_epi, t_bytes) * 1e3
+        rec["bound_by"] = "bytes" if t_bytes >= max(t_dot, t_epi) else "operations"
+        lib = rec.pop("library")
+        rec["library_ms"] = lib.get("bf16" if variant == "dotbf16" else "f32")
+        if rec["launches"] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched in its timed runs")
+        say(f"[10 mxu micro] {name}: kernel {rec['ms']:.4f} ms ({rec['ps_per_test']:.3f} ps a "
+            f"test), bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}: dot {t_dot * 1e3:.6f}, "
+            f"epilogue {t_epi * 1e3:.6f}, bytes {t_bytes * 1e3:.6f}), plain "
+            f"{rec['plain_ms']:.2f} ms, the dot alone {lib}, {rec['launches']} launches")
+    return out
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -1374,6 +1467,11 @@ KERNELS = {
                                    (cond_visit, "cond_visit", "tpu_cond_micro.py:110"),
                                    (visit_bodies, "visit_body", "tpu_body_micro.py:140"))
        for v in mod.VARIANTS},
+    **{f"mxu_tiles{n}_{m}": ("surf_tpu_torch/csrc/mxu_micro.cu",
+                             "scripts/tpu_mxu_pallas_micro.py:101") for n, m in mxu_tiles.CASES},
+    **{f"mxu_parts_{v}": ("surf_tpu_torch/csrc/mxu_micro.cu",
+                          "scripts/tpu_mxu_pallas_micro2.py:121") for v in mxu_parts.VARIANTS},
+    "mxu_pltd": ("surf_tpu_torch/csrc/mxu_micro.cu", "scripts/tpu_mxu_micro3.py:124"),
 }
 
 
@@ -1411,7 +1509,8 @@ def main() -> int:
     timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
     for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro),
                          ("8 walk micro", phase_walk_micro),
-                         ("9 shape micro", phase_shape_micro)):
+                         ("9 shape micro", phase_shape_micro),
+                         ("10 mxu micro", phase_mxu_micro)):
         micro = timed(label, phase, dev)
         kernels.update(micro)
         launches.update({k: v.pop("launches") for k, v in micro.items()})
@@ -1423,7 +1522,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None,
+            "bound_by": rec["bound_by"], "library_ms": rec.get("library_ms"),
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

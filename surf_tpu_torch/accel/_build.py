@@ -28,8 +28,8 @@ NVCC_FLAGS = (
 )
 
 # The C entry points of stream_walk.cu (one kernel template per walk),
-# dep_micro.cu, leaf_micro.cu, visit_micro.cu and shape_micro.cu (one per
-# variant); their wrappers count launches under these names.
+# dep_micro.cu, leaf_micro.cu, visit_micro.cu, shape_micro.cu and
+# mxu_micro.cu (one per variant); their wrappers count launches under these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
@@ -49,6 +49,11 @@ PARTS_ENTRY_POINTS = tuple(f"visit_parts_{v}" for v in ("base", "roll", "any", "
 COND_ENTRY_POINTS = tuple(f"cond_visit_{v}" for v in ("both", "cond"))
 BODY_ENTRY_POINTS = tuple(f"visit_body_{v}" for v in ("bin_sroll", "wide_x", "wide_bc",
                                                        "smem_stack"))
+# mxu_micro.cu: the matrix-unit microbenchmarks (one template per layout).
+MXU_ENTRY_POINTS = (tuple(f"mxu_tiles{n}_{m}" for n in (8, 16) for m in ("static", "dyn"))
+                    + tuple(f"mxu_parts_{v}" for v in ("full", "dotonly", "epionly", "dotbf16",
+                                                        "bigdot"))
+                    + ("mxu_pltd",))
 
 _LIB: ctypes.CDLL | None = None
 
@@ -152,6 +157,15 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             # table, n_rows, x, iters, o, state (mask_reduce: end), stream
             fn.argtypes = [p, i, p, i, p, p, p]
+            fn.restype = i
+        for name in MXU_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            if name == "mxu_pltd":
+                # rays_t, rows, tmax_t, n_blocks, t, k, stream
+                fn.argtypes = [p, p, p, i, p, p, p]
+            else:
+                # trips, rays, rows, tmax, n_blocks, t, k, chk, stream
+                fn.argtypes = [p, p, p, p, i, p, p, p, p]
             fn.restype = i
         for name in GROUP_ENTRY_POINTS:
             fn = getattr(lib, name)

@@ -1,7 +1,7 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
 rows, the stream walks with the TPU schedules, the binary walk, the
-dependent-cursor, leaf-row, walk-visit and visit-shape microbenchmarks)
-against their plain PyTorch versions, on the card.
+dependent-cursor, leaf-row, walk-visit, visit-shape and matrix-unit
+microbenchmarks) against their plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -9,7 +9,8 @@ no JAX, so they run on a machine without it:
 
 (``--noconftest``: tests/conftest.py configures JAX).  The kernels are built
 with --fmad=false, so each and its plain version round every op alike and
-must agree bit for bit.
+must agree bit for bit; the matrix-unit kernels' tensor-core dots are
+held by their gates (micro/_mxu.py MXU_GATE, BF16_GATE).
 """
 
 from unittest import mock
@@ -18,13 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from surf_tpu_torch.accel import (bits, bvh_walk, inst_rows, instanced, stream,
+from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
-from surf_tpu_torch.micro import (cond_visit, dep_chain, leaf_groups, leaf_visit, mask_reduce,
-                                  quant_visit, stack_visit, visit_bodies, visit_cost,
-                                  visit_parts)
+from surf_tpu_torch.micro import (_mxu, cond_visit, dep_chain, leaf_groups, leaf_visit,
+                                  mask_reduce, mxu_parts, mxu_pltd, mxu_tiles, quant_visit,
+                                  stack_visit, visit_bodies, visit_cost, visit_parts)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
@@ -435,6 +436,60 @@ def test_shape_micro_matches_plain(cuda, name):
             want = fn(*(x.cpu() for x in data), variant, n)
             for g, w in zip(got, want):
                 assert torch.equal(g.cpu(), w)
+
+
+def _mxu_cases(name, cuda):
+    """(module, wrapper on (*data), the data sets, compare mode) of a
+    matrix-unit entry point: the first 4 blocks of the script's data, the
+    tmax data and, for mxu_tiles, the trips data."""
+    if name.startswith("mxu_tiles"):
+        case = [f"mxu_tiles{n}_{m}" for n, m in mxu_tiles.CASES].index(name)
+        ntiles, mode = mxu_tiles.CASES[case]
+        sets = [mxu_tiles.make_data(case, cuda, 4), mxu_tiles.make_trips_data(ntiles, cuda),
+                mxu_tiles.make_tmax_data(case, cuda)]
+        return mxu_tiles, lambda *d: mxu_tiles.mxu_tiles(*d, mode == "dyn"), sets, "epi"
+    if name.startswith("mxu_parts"):
+        v = name.split("_", 2)[2]
+        sets = [mxu_parts.make_data(cuda, 4), mxu_parts.make_tmax_data(cuda)]
+        return (mxu_parts, lambda *d: mxu_parts.mxu_parts(*d, v), sets,
+                "exact" if v == "epionly" else mxu_parts.mode(v))
+    return mxu_pltd, mxu_pltd.mxu_pltd, [mxu_pltd.make_data(cuda, 4),
+                                         mxu_pltd.make_tmax_data(cuda)], "pltd"
+
+
+@pytest.mark.parametrize("name", _build.MXU_ENTRY_POINTS)
+def test_mxu_micro_matches_plain(cuda, name):
+    """Each matrix-unit kernel against its plain version (the wrapper on CPU
+    tensors) under its module gate, epionly bit for bit, one launch a
+    call."""
+    mod, fn, sets, mode = _mxu_cases(name, cuda)
+    for data in sets:
+        mod.reset_launches()
+        got = fn(*data)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES[name] == 1
+        cpu = [x.cpu() for x in data]
+        want = fn(*cpu)
+        got = [None if x is None else x.cpu() for x in got]
+        res = (mxu_pltd.compare(got, want, cpu[0], cpu[1]) if mode == "pltd" else
+               _mxu.compare(got, want, cpu[0], cpu[1], mode))
+        assert res["ok"], res
+
+
+def test_mxu_wrappers_reject_bad_inputs(cuda):
+    """A CPU / CUDA mix and a tile count without an entry point raise."""
+    rays, rows, tmax, trips = mxu_tiles.make_data(0, cuda, 2)
+    with pytest.raises(ValueError):
+        mxu_tiles.mxu_tiles(rays.cpu(), rows, tmax, trips, False)
+    with pytest.raises(ValueError):
+        mxu_tiles.mxu_tiles(rays, rows, tmax, trips.cpu(), True)
+    with pytest.raises(ValueError):
+        mxu_tiles.mxu_tiles(rays, rows[:, :3].contiguous(), tmax, trips, False)
+    with pytest.raises(ValueError):
+        mxu_parts.mxu_parts(rays, rows, tmax, "full")          # 8 tiles, not 16
+    with pytest.raises(ValueError):
+        mxu_pltd.mxu_pltd(*(x.cpu() if i == 2 else x for i, x in
+                            enumerate(mxu_pltd.make_data(cuda, 2))))
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
