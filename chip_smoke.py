@@ -148,6 +148,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      Then the SASS: each kernel's HMMA count at least 3 x 6 x 4 a tile for
      the f32 dots (one tile body for dyn), 6 x 4 a tile for bf16, none for
      epionly.
+  11. op micro: the op-cost microbenchmarks (micro/lane_splat.py,
+     lane_extract.py, walk_interleave.py, spec_visit.py), each entry
+     point's kernel against its plain version at a check size (64 visits,
+     32, 32 steps, 512 rows) on the script's data and on the module's
+     test-only data (signed rows, vote data, jump data), every output
+     bit-identical or the phase fails (lane_splat's six against
+     visit_parts' base); then timed at the script's size (4096 visits,
+     2048, 2048 steps, 32768 rows; the kernels line) and 3 times it, the
+     least of 3 single calls, and the slope in ns a visit, step or row
+     tested.  Then the SASS, found by entry point: each splat keeps its
+     path (LDG, LDG.CONSTANT, LDS behind a BAR or not, SHFL), lane_extract
+     reads n_e lanes a visit and keeps n_e + n_v FMUL/FADD pairs a value
+     and no FFMA, the interleaved walks and the W-row visits one barrier
+     a step whatever n or W.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -166,10 +180,10 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
-from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, leaf_groups,
-                                  leaf_visit, mask_reduce, mxu_parts, mxu_pltd, mxu_tiles,
-                                  quant_visit, stack_visit, visit_bodies, visit_cost,
-                                  visit_parts)
+from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, lane_extract,
+                                  lane_splat, leaf_groups, leaf_visit, mask_reduce, mxu_parts,
+                                  mxu_pltd, mxu_tiles, quant_visit, spec_visit, stack_visit,
+                                  visit_bodies, visit_cost, visit_parts, walk_interleave)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
 from surf_tpu_torch.scene.compile import compile_scene
@@ -276,25 +290,29 @@ TOY_MT_FLOPS = 33
 PEAK_TC = {"tf32": 495e12, "bf16": 989e12}
 TILE_DOT_FLOPS = 2 * _mxu.R * _mxu.K * _mxu.COLS
 EPI_FLOPS = 18
-# Each kernel's SASS: the mangled template name of its entry point
-# (mxu_micro.cu's Mode, whose values are fixed there: kStatic 0, kDyn 1,
-# kDotOnly 2, kEpiOnly 3, kDotBf16 4, kBigDot 5), and the least HMMA count (a tile's f32 dot is 4
-# n8 tiles x 6 blocks x 3 TF32 products; bf16 one product each; dyn's
-# loop body holds at least one tile).
+# Each entry point's least HMMA count in the SASS of the kernel it
+# launches (a tile's f32 dot is 4 n8 tiles x 6 blocks x 3 TF32 products;
+# bf16 one product each; dyn's loop body holds at least one tile).
 MXU_SASS = {
-    "mxu_tiles8_static": ("mxu_kernelILi0ELi8EE", 72 * 8),
-    "mxu_tiles8_dyn": ("mxu_kernelILi1ELi8EE", 72),
-    "mxu_tiles16_static": ("mxu_kernelILi0ELi16EE", 72 * 16),
-    "mxu_tiles16_dyn": ("mxu_kernelILi1ELi16EE", 72),
-    "mxu_parts_full": ("mxu_kernelILi0ELi16EE", 72 * 16),
-    "mxu_parts_dotonly": ("mxu_kernelILi2ELi16EE", 72 * 16),
-    "mxu_parts_epionly": ("mxu_kernelILi3ELi16EE", 0),
-    "mxu_parts_dotbf16": ("mxu_kernelILi4ELi16EE", 24 * 16),
-    "mxu_parts_bigdot": ("mxu_kernelILi5ELi16EE", 72 * 16),
-    "mxu_pltd": ("mxu_pltd_kernelILi16EE", 72 * 16),
+    "mxu_tiles8_static": 72 * 8,
+    "mxu_tiles8_dyn": 72,
+    "mxu_tiles16_static": 72 * 16,
+    "mxu_tiles16_dyn": 72,
+    "mxu_parts_full": 72 * 16,
+    "mxu_parts_dotonly": 72 * 16,
+    "mxu_parts_epionly": 0,
+    "mxu_parts_dotbf16": 24 * 16,
+    "mxu_parts_bigdot": 72 * 16,
+    "mxu_pltd": 72 * 16,
 }
 BODY_VISIT_FLOPS = {"bin_sroll": 9 * LINK_FLOPS + 1, "wide_x": 8 * STACK_CHILD_FLOPS + 1,
                     "wide_bc": STACK_CHILD_FLOPS, "smem_stack": 8 * STACK_CHILD_FLOPS + 1}
+# Phase 11, counted from op_micro.cu, per value: lane_splat's and the
+# interleaved walks' chain links LINK_FLOPS, a vote 1 compare;
+# lane_extract a lane or a link 1 multiply and 1 add, and its vote;
+# roll_tput 1 multiply and 1 add a lane (128 lanes a visit); spec_visit a
+# row's 8 boxes and 8 records per ray.
+SPEC_ROW_FLOPS = 8 * SLAB_FLOPS + 8 * MT_FLOPS
 
 
 def say(msg: str) -> None:
@@ -1321,12 +1339,12 @@ def _shape_sass(say) -> None:
     scripts' compiler could drop or restructure are there.  ``both`` runs
     both bodies on every visit when the leaf flag's predicate feeds only
     selects, ``cond`` one body when it feeds a branch."""
-    parts = {v: _visit.sass_counts(f"visit_parts_kernelILi{i}E", ("BAR", "LDG"))
-             for i, v in enumerate(visit_parts.VARIANTS)}
-    conds = {v: _visit.sass_counts(f"cond_visit_kernelILi{i}E", ("FMNMX", "MUFU.RCP", "BRA"))
-             for i, v in enumerate(cond_visit.VARIANTS)}
-    flag = {v: _visit.flag_uses(f"cond_visit_kernelILi{i}E", 4 * _visit.LEAF_LANE)
-            for i, v in enumerate(cond_visit.VARIANTS)}
+    parts = {v: _visit.sass_counts(f"visit_parts_{v}", ("BAR", "LDG"))
+             for v in visit_parts.VARIANTS}
+    conds = {v: _visit.sass_counts(f"cond_visit_{v}", ("FMNMX", "MUFU.RCP", "BRA"))
+             for v in cond_visit.VARIANTS}
+    flag = {v: _visit.flag_uses(f"cond_visit_{v}", 4 * _visit.LEAF_LANE)
+            for v in cond_visit.VARIANTS}
     say(f"[9 shape micro] SASS visit_parts {parts}; cond_visit {conds}; "
         f"the leaf flag's predicate read by {flag}")
     if parts["any"]["BAR"] < 1 or parts["base"]["BAR"] != 0:
@@ -1384,12 +1402,11 @@ def _mxu_sass(say) -> None:
     dropped (the DEAD parts' five unused blocks included), and epionly has
     none.  Prints the kernels' instruction counts beside them (every
     opcode starts with "")."""
-    sass = {name: _visit.sass_counts(kernel, ("HMMA", "")) for name, (kernel, _) in
-            MXU_SASS.items()}
+    sass = {name: _visit.sass_counts(name, ("HMMA", "")) for name in MXU_SASS}
     counts = {name: c["HMMA"] for name, c in sass.items()}
     say(f"[10 mxu micro] SASS HMMA counts {counts}; instructions "
         f"{ {name: c[''] for name, c in sass.items()} }")
-    for name, (_, least) in MXU_SASS.items():
+    for name, least in MXU_SASS.items():
         if counts[name] < least or (least == 0 and counts[name] != 0):
             raise AssertionError(f"{name}: {counts[name]} HMMA in its SASS, expected "
                                  f"{'none' if least == 0 else f'at least {least}'}")
@@ -1424,6 +1441,120 @@ def phase_mxu_micro(dev: torch.device) -> dict:
             f"test), bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}: dot {t_dot * 1e3:.6f}, "
             f"epilogue {t_epi * 1e3:.6f}, bytes {t_bytes * 1e3:.6f}), plain "
             f"{rec['plain_ms']:.2f} ms, the dot alone {lib}, {rec['launches']} launches")
+    return out
+
+
+def _op_sass(say) -> None:
+    """The SASS checks of op_micro.cu's kernels, each found by its entry
+    point: every splat keeps its own path to the lane and reads the
+    chain's lanes; lane_extract reads n_e lanes a visit and keeps n_e +
+    n_v multiplies and adds a value, none merged into an FFMA; the
+    interleaved walks and the W-row visits take one barrier a step
+    whatever n or W."""
+    links = visit_parts.LINKS
+    # the words a splat's loads read as LDG (plain or read-only) or LDS, its
+    # shuffles and its block barriers
+    splat = {v: _visit.sass_counts(f"lane_splat_{v}", ("LDG", "LDG.CONSTANT", "LDS", "SHFL",
+                                                       "BAR"), words=True)
+             for v in lane_splat.VARIANTS}
+    say(f"[11 op micro] SASS lane_splat (words read, SHFL, BAR): {splat}")
+    for v, c in splat.items():
+        plain, ro = c["LDG"] - c["LDG.CONSTANT"], c["LDG.CONSTANT"]
+        keeps = {"scalar_extract": plain >= links > ro and c["LDS"] == c["SHFL"] == 0,
+                 "bcast_1x128": ro >= links > plain and c["LDS"] == c["SHFL"] == 0,
+                 "rep_then_slice": c["LDS"] >= links and c["BAR"] >= 1 and c["SHFL"] == 0,
+                 "concat_then_slice": c["LDS"] >= links and c["BAR"] == c["SHFL"] == 0,
+                 "repeat_prim": c["SHFL"] >= links and c["LDS"] == c["BAR"] == 0,
+                 "roll_lane0": c["SHFL"] > links and c["LDS"] == c["BAR"] == 0}[v]
+        if not keeps:
+            raise AssertionError(f"lane_splat {v} lost its path to the lane: {c}")
+    ext = {v: _visit.sass_counts(f"lane_extract_{v}", ("FMUL", "FADD", "FFMA"))
+           for v in lane_extract.VARIANTS}
+    words = {v: _visit.sass_counts(f"lane_extract_{v}", ("LDG",), words=True)["LDG"]
+             for v in lane_extract.VARIANTS}
+    say(f"[11 op micro] SASS lane_extract {ext}; words loaded {words}")
+    for v, c in ext.items():
+        n_e, n_v = lane_extract.case(v)
+        pairs = 2 * (n_e + n_v)  # 2 values a thread
+        if c["FFMA"] or c["FMUL"] < pairs or c["FADD"] < pairs or words[v] < n_e:
+            raise AssertionError(f"lane_extract {v}: {c}, {words[v]} words loaded; expected "
+                                 f"{pairs} FMUL and FADD, no FFMA, {n_e} lanes")
+    bars = {name: _visit.sass_counts(name, ("BAR",))["BAR"]
+            for name in _build.INTERLEAVE_ENTRY_POINTS[:-1] + _build.SPEC_ENTRY_POINTS[1:]}
+    say(f"[11 op micro] SASS barriers {bars}")
+    for group in (_build.INTERLEAVE_ENTRY_POINTS[:-1], _build.SPEC_ENTRY_POINTS[1:]):
+        if len({bars[name] for name in group}) != 1:
+            raise AssertionError(f"barriers a step differ with n or W: {bars}")
+
+
+def _rows_read(starts, steps) -> int:
+    """The distinct table rows of cursors that start at ``starts`` and move
+    by ``steps`` (a list of 1s and 2s, the same for every start)."""
+    seen = set()
+    for p in starts:
+        for s in steps:
+            seen.add(p % _visit.D_ROWS)
+            p += s
+    return len(seen)
+
+
+def phase_op_micro(dev: torch.device) -> dict:
+    """The op-cost microbenchmarks; per entry point the kernels line's
+    numbers at the script's size.  Bounds count the operations of the
+    visits made (lane_splat and the interleaved walks the chain's links
+    and the vote; lane_extract (n_e + n_v) x 2 + 1 a value; roll_tput 2 a
+    lane; spec_visit the rows tested x 1024 rays x (8 x 25 + 8 x 48)) and
+    the bytes: the 32-byte sectors of the lanes each reads of the distinct
+    rows it reads, x or the rays, and the outputs.  The rows are those of
+    the script's data: lane_splat, roll_tput and spec_visit read their
+    rows in order; the interleaved walks' votes are all set there (r only
+    grows), and lane_extract's, once set, stay set, so the state's vote
+    count gives the cursor's path."""
+    out = {}
+    io = 8 * _visit.RAYS + 8
+    chain = visit_parts.LINKS * LINK_FLOPS
+    chain_bytes = _visit.row_bytes(range(visit_parts.LINKS))
+    for v, r in lane_splat.measure(dev, say).items():
+        n = lane_splat.ITERS
+        out[f"lane_splat_{v}"] = dict(r, bound=_bound(
+            n * _visit.RAYS * chain, _rows_read([0], [1] * n) * chain_bytes + io))
+    for v, r in lane_extract.measure(dev, say).items():
+        n_e, n_v = lane_extract.case(v)
+        n = _visit.block_visits(lane_extract.ITERS)
+        votes = r["state"][1]
+        rows = _rows_read([lane_extract.START], [2] * (n - votes) + [1] * votes)
+        out[f"lane_extract_{v}"] = dict(r, bound=_bound(
+            n * _visit.RAYS * ((n_e + n_v) * 2 + 1), rows * _visit.row_bytes(range(n_e)) + io))
+    for v, r in walk_interleave.measure(dev, say).items():
+        n = walk_interleave.ITERS
+        if v == "roll_tput":
+            flops = n * _visit.LANE * 2
+            n_bytes = _rows_read([0], [1] * n) * 4 * _visit.LANE + io
+        else:
+            b = walk_interleave.walks(v)
+            if any(votes != n for _, votes in r["state"]):
+                raise AssertionError(f"walk_interleave {v}: a vote failed on the script's data")
+            flops = n * b * _visit.RAYS * (chain + 1)
+            n_bytes = (_rows_read([7 * k for k in range(b)], [1] * n) * chain_bytes
+                       + 8 * _visit.RAYS + 8 * b)
+        out[f"walk_interleave_{v}"] = dict(r, bound=_bound(flops, n_bytes))
+    for v, r in spec_visit.measure(dev, say).items():
+        rows = r["work"]
+        n_bytes = min(rows, _visit.D_ROWS) * 4 * _visit.LANE + 24 * _visit.RAYS + io
+        out[f"spec_visit_{v}"] = dict(r, bound=_bound(rows * _visit.RAYS * SPEC_ROW_FLOPS,
+                                                      n_bytes))
+    if dev.type == "cuda":
+        say(f"[11 op micro] SM clock after the timed runs, and its most (MHz): "
+            f"{_visit.card_line('clocks.sm,clocks.max.sm')}")
+        _op_sass(say)
+    for name, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+        rec["max_abs_err"] = 0.0
+        if rec["launches"] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched in its timed runs")
+        say(f"[11 op micro] {name}: kernel {rec['ms']:.4f} ms, slope {rec['slope_ns']:.2f} ns, "
+            f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}), plain {rec['plain_ms']:.1f} ms, "
+            f"{rec['launches']} launches")
     return out
 
 
@@ -1472,6 +1603,13 @@ KERNELS = {
     **{f"mxu_parts_{v}": ("surf_tpu_torch/csrc/mxu_micro.cu",
                           "scripts/tpu_mxu_pallas_micro2.py:121") for v in mxu_parts.VARIANTS},
     "mxu_pltd": ("surf_tpu_torch/csrc/mxu_micro.cu", "scripts/tpu_mxu_micro3.py:124"),
+    **{f"{prefix}_{v}": ("surf_tpu_torch/csrc/op_micro.cu", f"scripts/{script}")
+       for mod, prefix, script in ((lane_splat, "lane_splat", "tpu_splat_micro.py:85"),
+                                   (lane_extract, "lane_extract", "tpu_extract_micro.py:65"),
+                                   (walk_interleave, "walk_interleave",
+                                    "tpu_interleave_micro.py:96"),
+                                   (spec_visit, "spec_visit", "tpu_spec_micro.py:270"))
+       for v in mod.VARIANTS},
 }
 
 
@@ -1510,7 +1648,8 @@ def main() -> int:
     for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro),
                          ("8 walk micro", phase_walk_micro),
                          ("9 shape micro", phase_shape_micro),
-                         ("10 mxu micro", phase_mxu_micro)):
+                         ("10 mxu micro", phase_mxu_micro),
+                         ("11 op micro", phase_op_micro)):
         micro = timed(label, phase, dev)
         kernels.update(micro)
         launches.update({k: v.pop("launches") for k, v in micro.items()})

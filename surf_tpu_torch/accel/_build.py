@@ -28,8 +28,9 @@ NVCC_FLAGS = (
 )
 
 # The C entry points of stream_walk.cu (one kernel template per walk),
-# dep_micro.cu, leaf_micro.cu, visit_micro.cu, shape_micro.cu and
-# mxu_micro.cu (one per variant); their wrappers count launches under these names.
+# dep_micro.cu, leaf_micro.cu, visit_micro.cu, shape_micro.cu, op_micro.cu
+# and mxu_micro.cu (one per variant); their wrappers count launches under
+# these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
@@ -49,6 +50,17 @@ PARTS_ENTRY_POINTS = tuple(f"visit_parts_{v}" for v in ("base", "roll", "any", "
 COND_ENTRY_POINTS = tuple(f"cond_visit_{v}" for v in ("both", "cond"))
 BODY_ENTRY_POINTS = tuple(f"visit_body_{v}" for v in ("bin_sroll", "wide_x", "wide_bc",
                                                        "smem_stack"))
+# op_micro.cu: the op-cost microbenchmarks.
+SPLAT_ENTRY_POINTS = tuple(f"lane_splat_{v}" for v in ("scalar_extract", "bcast_1x128",
+                                                       "rep_then_slice", "concat_then_slice",
+                                                       "repeat_prim", "roll_lane0"))
+EXTRACT_ENTRY_POINTS = tuple(f"lane_extract_e{e}_v{v}" for e, v in ((8, 0), (32, 0), (64, 0),
+                                                                     (128, 0), (8, 56), (8, 120),
+                                                                     (8, 248)))
+INTERLEAVE_ENTRY_POINTS = tuple(f"walk_interleave_{v}" for v in ("serial_any", "inter2",
+                                                                 "inter4", "inter8", "inter16",
+                                                                 "roll_tput"))
+SPEC_ENTRY_POINTS = tuple(f"spec_visit_{v}" for v in ("cur", "w1", "w2", "w3", "w4", "w6"))
 # mxu_micro.cu: the matrix-unit microbenchmarks (one template per layout).
 MXU_ENTRY_POINTS = (tuple(f"mxu_tiles{n}_{m}" for n in (8, 16) for m in ("static", "dyn"))
                     + tuple(f"mxu_parts_{v}" for v in ("full", "dotonly", "epionly", "dotbf16",
@@ -153,10 +165,16 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [p, i, p, i, p, p, p, p, p, p]
             fn.restype = i
         for name in (STACK_ENTRY_POINTS + MASK_ENTRY_POINTS + PARTS_ENTRY_POINTS
-                     + COND_ENTRY_POINTS + BODY_ENTRY_POINTS):
+                     + COND_ENTRY_POINTS + BODY_ENTRY_POINTS + SPLAT_ENTRY_POINTS
+                     + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS):
             fn = getattr(lib, name)
             # table, n_rows, x, iters, o, state (mask_reduce: end), stream
             fn.argtypes = [p, i, p, i, p, p, p]
+            fn.restype = i
+        for name in SPEC_ENTRY_POINTS:
+            fn = getattr(lib, name)
+            # table, n_rows, rays, rows_total, t, r, state, stream
+            fn.argtypes = [p, i, p, i, p, p, p, p]
             fn.restype = i
         for name in MXU_ENTRY_POINTS:
             fn = getattr(lib, name)
@@ -177,6 +195,15 @@ def library() -> ctypes.CDLL:
             # nodes, n_nodes, tris, rays, act, n_rays, t, p, u, v, counts, stream
             fn.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p]
             fn.restype = i
+        # The kernel an entry point launches (entry.cuh) and its device name.
+        for name in (PARTS_ENTRY_POINTS + COND_ENTRY_POINTS + BODY_ENTRY_POINTS
+                     + SPLAT_ENTRY_POINTS + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS
+                     + SPEC_ENTRY_POINTS + MXU_ENTRY_POINTS):
+            fn = getattr(lib, f"{name}_kernel")
+            fn.argtypes = []
+            fn.restype = p
+        lib.surf_kernel_name.argtypes = [p, ctypes.POINTER(ctypes.c_char_p)]
+        lib.surf_kernel_name.restype = i
         for name in ("leaf_rows_threads_per_block", "inst_rows_threads_per_block",
                      "stream_walk_threads_per_block", "bvh_walk_threads_per_block"):
             getattr(lib, name).argtypes = []

@@ -81,6 +81,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "mt.cuh"
 
 namespace {
@@ -404,13 +405,14 @@ int launch_rows(const int* trips, const float* rays, const float* rows, const fl
 // The rows layout's entry points: (trips or NULL, rays, rows, tmax,
 // n_blocks, t, k, chk or NULL, stream); mxu_pltd: (rays_t, rows, tmax_t,
 // n_blocks, t, k, stream).  Each returns cudaGetLastError() after the
-// launch.
+// launch; NAME_kernel() gives the kernel it launches (entry.cuh).
 #define SURF_MXU_ENTRY(NAME, MODE, TILES)                                                   \
   extern "C" int NAME(const int* trips, const float* rays, const float* rows,              \
                       const float* tmax, int n_blocks, float* t, int* k, float* chk,       \
                       cudaStream_t cs) {                                                   \
     return launch_rows<MODE, TILES>(trips, rays, rows, tmax, n_blocks, t, k, chk, cs);     \
-  }
+  }                                                                                        \
+  SURF_KERNEL_OF(NAME, mxu_kernel<MODE, TILES>)
 
 SURF_MXU_ENTRY(mxu_tiles8_static, kStatic, 8)
 SURF_MXU_ENTRY(mxu_tiles8_dyn, kDyn, 8)
@@ -427,3 +429,4 @@ extern "C" int mxu_pltd(const float* rays_t, const float* rows, const float* tma
   mxu_pltd_kernel<16><<<n_blocks * kCtas, kThreads, 0, cs>>>(rays_t, rows, tmax_t, t, k);
   return static_cast<int>(cudaGetLastError());
 }
+SURF_KERNEL_OF(mxu_pltd, mxu_pltd_kernel<16>)

@@ -69,6 +69,7 @@
 
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "mt.cuh"
 
 namespace {
@@ -365,12 +366,14 @@ visit_body_kernel(const float* __restrict__ table, int n_rows, const float* __re
 // launch.  table is [n_rows, 128] f32 (16-byte aligned; cond_visit: int32
 // lane 9 the leaf flag; visit_body: n_rows >= 8); x [1024]; iters > 0; o
 // [1024]; state [2] = the end cursor, the visits whose vote was set.
+// NAME_kernel() gives the kernel NAME launches (entry.cuh).
 #define SURF_SHAPE_ENTRY(NAME, KERNEL)                                                       \
   extern "C" int NAME(const float* table, int n_rows, const float* x, int iters, float* o,   \
                       int* state, cudaStream_t cs) {                                         \
     KERNEL<<<1, kThreads, 0, cs>>>(table, n_rows, x, iters, o, state);                       \
     return static_cast<int>(cudaGetLastError());                                             \
-  }
+  }                                                                                          \
+  SURF_KERNEL_OF(NAME, KERNEL)
 
 SURF_SHAPE_ENTRY(visit_parts_base, visit_parts_kernel<kBase>)
 SURF_SHAPE_ENTRY(visit_parts_roll, visit_parts_kernel<kRoll>)

@@ -1,10 +1,13 @@
 """What the walk-visit microbenchmarks (``visit_cost``, ``quant_visit``,
-``stack_visit``, ``mask_reduce``; kernels in ``csrc/visit_micro.cu``) and
-the visit-shape ones (``visit_parts``, ``cond_visit``, ``visit_bodies``;
-``csrc/shape_micro.cu``) share: the table's shape, the input checks, the
+``stack_visit``, ``mask_reduce``; kernels in ``csrc/visit_micro.cu``), the
+visit-shape ones (``visit_parts``, ``cond_visit``, ``visit_bodies``;
+``csrc/shape_micro.cu``) and the op-cost ones (``lane_splat``,
+``lane_extract``, ``walk_interleave``, ``spec_visit``;
+``csrc/op_micro.cu``) share: the table's shape, the input checks, the
 launch, the slab test's reduction in their plain versions, the
-measurement on the card, and the count of instructions in a compiled
-kernel and the readers of a predicate there."""
+measurement on the card, and, for the kernel an entry point launches,
+the count of instructions in its SASS and the readers of a predicate
+there."""
 
 from __future__ import annotations
 
@@ -92,11 +95,12 @@ def slab_hits(tn, tf, best_t):
 
 
 def slab8(row, o, inv, best_t, oinv=None):
-    """[R, 8]: the slab test of the rays against a row's 8 child boxes
-    (lanes 16k + 0..5) with the running best_t; o, inv, oinv are [R, 3].
-    The planes are (lo - o) * inv, or lo * inv - o * inv when ``oinv`` is
-    given (``visit_cost``'s ``slabfma``)."""
-    box = row.view(8, REC)[:, :6]
+    """[R, 8 W]: the slab test of the rays against the 8 child boxes (lanes
+    16k + 0..5) of each of the W rows in ``row`` ([128 W], W rows end to
+    end) with the running best_t; o, inv, oinv are [R, 3].  The planes are
+    (lo - o) * inv, or lo * inv - o * inv when ``oinv`` is given
+    (``visit_cost``'s ``slabfma``)."""
+    box = row.view(-1, REC)[:, :6]
     lo, hi = box[None, :, 0:3], box[None, :, 3:6]
     if oinv is None:
         tn = (lo - o[:, None]) * inv[:, None]
@@ -208,33 +212,115 @@ def measure_variants(name: str, fn, plain, variants, data, vote_data, sizes, lau
     return out
 
 
+def measure_checked(name: str, fn, plain, variants, data_sets, check: int, sizes, launches: dict,
+                    say=print, work=None, unit: str = "visit") -> dict:
+    """The measurement of an op-cost microbenchmark (``fn`` its wrapper,
+    ``plain`` its plain version, both called as (*data, variant, n);
+    entry points ``{name}_{variant}`` counted in ``launches``).  Per
+    variant: the kernel against its plain version at ``check`` on each of
+    ``data_sets`` (every output bit-equal, else ValueError; the plain call
+    on the first set timed); then, with the launch counts reset just
+    before, the kernel's least ms of 3 single calls at both ``sizes`` on
+    the first set, its launches in those runs, and the slope in ns a
+    ``unit`` of ``work(variant, outputs, n)`` (default n) between them.
+    Returns per variant ms (at sizes[0]), plain_ms, launches, slope_ns,
+    checksum (the sum of the first output at sizes[0]), finite (its
+    finite values), state (the last output there, as a list), work (at
+    sizes[0]) and checks (the last output at ``check`` per data set)."""
+    work = work or (lambda v, res, n: n)
+    out = {}
+    for v in variants:
+        checks = []
+        for k, data in enumerate(data_sets):
+            got = fn(*data, v, check)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(*data, v, check)
+            torch.cuda.synchronize()
+            if k == 0:
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            same(got, want, f"{name} {v} at {check} on data set {k}")
+            checks.append(got[-1].tolist())
+        out[v] = dict(plain_ms=plain_ms, checks=checks)
+    for k in launches:
+        launches[k] = 0
+    data = data_sets[0]
+    for v in variants:
+        ms = [least_ms(lambda n=n: fn(*data, v, n)) for n in sizes]
+        res = [fn(*data, v, n) for n in sizes]
+        w = [work(v, r, n) for r, n in zip(res, sizes)]
+        slope = slope_ns(ms, w)
+        r = out[v]
+        r.update(ms=ms[0], launches=launches[f"{name}_{v}"], slope_ns=slope,
+                 checksum=float(res[0][0].sum()), finite=int(torch.isfinite(res[0][0]).sum()),
+                 state=res[0][-1].tolist(), work=w[0])
+        say(f"[{name}] {v}: bit-identical to plain at {check} on {len(data_sets)} data sets "
+            f"(their states {r['checks']}; plain {r['plain_ms']:.1f} ms); {w[0]} / {w[1]} "
+            f"{unit}s {ms[0]:.4f} / {ms[1]:.4f} ms, slope {slope:.2f} ns a {unit}, state "
+            f"{r['state']}, {r['finite']} finite, checksum={r['checksum']!r}")
+    return out
+
+
 _SASS: dict = {}
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 
 
-def _sass(kernel: str) -> list:
-    """Per compiled kernel whose mangled name contains ``kernel``
-    (``cuobjdump -sass`` of the kernel library), its instructions in
-    order, each (guard predicate or "", opcode, [operands])."""
+def kernel_name(entry: str) -> str:
+    """The device (mangled) name of the kernel that the C entry point
+    ``entry`` launches, from the handle its ``{entry}_kernel()`` returns
+    (``csrc/entry.cuh``): found by the entry's name, not by a template
+    argument's value."""
+    lib = _build.library()
+    name = ctypes.c_char_p()
+    err = lib.surf_kernel_name(getattr(lib, f"{entry}_kernel")(), ctypes.byref(name))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetName for {entry} failed with CUDA error {err}")
+    return name.value.decode()
+
+
+def _sass(entry: str) -> list:
+    """The instructions, in order, of the kernel that entry point ``entry``
+    launches (``cuobjdump -sass`` of the kernel library), each (guard
+    predicate or "", opcode, [operands])."""
     so = _build.build()
     if so not in _SASS:
         tool = Path(_build._nvcc()).with_name("cuobjdump")
         _SASS[so] = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
                                    check=True, timeout=300).stdout
-    return [[(g.strip().lstrip("@"), op, [a.strip() for a in args.split(",") if a.strip()])
-             for g, op, args in _INSTRUCTION.findall(fn)]
-            for fn in _SASS[so].split("Function : ")[1:] if kernel in fn.split(None, 1)[0]]
+    kernel = kernel_name(entry)
+    fns = [fn for fn in _SASS[so].split("Function : ")[1:] if fn.split(None, 1)[0] == kernel]
+    if len(fns) != 1:
+        raise RuntimeError(f"{len(fns)} kernels named {kernel} ({entry}) in the SASS")
+    return [(g.strip().lstrip("@"), op, [a.strip() for a in args.split(",") if a.strip()])
+            for g, op, args in _INSTRUCTION.findall(fns[0])]
 
 
-def sass_counts(kernel: str, opcodes) -> dict:
-    """{opcode: count} in the SASS of the kernels whose mangled name
-    contains ``kernel``, an instruction counting for each opcode its name
-    starts with: ``BAR`` counts ``BAR.SYNC`` and ``BAR.RED.OR``."""
+def _matches(op: str, key: str) -> bool:
+    """An opcode matches a key when its first part is the key's (or that
+    with an immediate operand, FMUL32I for FMUL) and it has every later
+    part of the key among its own: ``BAR`` counts ``BAR.SYNC`` and
+    ``BAR.RED.OR``, ``LDG.CONSTANT`` counts ``LDG.E.128.CONSTANT``, and ""
+    every instruction."""
+    head, *rest = key.split(".")
+    first, *parts = op.split(".")
+    return (not head or first in (head, head + "32I")) and set(rest) <= set(parts)
+
+
+def _words(op: str) -> int:
+    """The 32-bit words a load or store moves: .64 two, .128 four, else one."""
+    parts = op.split(".")
+    return 4 if "128" in parts else 2 if "64" in parts else 1
+
+
+def sass_counts(entry: str, opcodes, words: bool = False) -> dict:
+    """{opcode: count} in the SASS of the kernel that entry point ``entry``
+    launches (``_matches``); with ``words`` a load or store counts the
+    32-bit words it moves, so a vector load counts as the lanes it reads."""
     counts = dict.fromkeys(opcodes, 0)
-    for fn in _sass(kernel):
-        for _, op, _ in fn:
-            for k in counts:
-                counts[k] += op.startswith(k)
+    for _, op, _ in _sass(entry):
+        for k in counts:
+            if _matches(op, k):
+                counts[k] += _words(op) if words else 1
     return counts
 
 
@@ -243,26 +329,27 @@ def _reg(operand: str) -> str:
     return operand.lstrip("!-|").split(".")[0].rstrip("|")
 
 
-def flag_uses(kernel: str, offset: int) -> list:
+def flag_uses(entry: str, offset: int) -> list:
     """The opcodes of the instructions, in order, that read the predicate
-    tested from the word a kernel loads at byte ``offset`` of its row (the
-    first load with that offset, the first ISETP or LOP3 that reads its
-    register into a predicate), up to the straight-line write that
-    replaces the predicate: a BRA among them is a branch on the word."""
+    tested from the word the kernel of entry point ``entry`` loads at byte
+    ``offset`` of its row (the first load with that offset, the first ISETP
+    or LOP3 that reads its register into a predicate), up to the
+    straight-line write that replaces the predicate: a BRA among them is a
+    branch on the word."""
+    fn = _sass(entry)
+    load = next(k for k, (_, op, a) in enumerate(fn)
+                if op.startswith("LDG") and a[1].endswith(f"+{offset:#x}]"))
+    reg = fn[load][2][0]
+    test = next(k for k in range(load + 1, len(fn)) if fn[k][1].startswith(("ISETP", "LOP3"))
+                and re.fullmatch(r"U?P\d", fn[k][2][0])
+                and reg in (_reg(a) for a in fn[k][2][1:]))
+    pred = fn[test][2][0]
     uses = []
-    for fn in _sass(kernel):
-        load = next(k for k, (_, op, a) in enumerate(fn)
-                    if op.startswith("LDG") and a[1].endswith(f"+{offset:#x}]"))
-        reg = fn[load][2][0]
-        test = next(k for k in range(load + 1, len(fn)) if fn[k][1].startswith(("ISETP", "LOP3"))
-                    and re.fullmatch(r"U?P\d", fn[k][2][0])
-                    and reg in (_reg(a) for a in fn[k][2][1:]))
-        pred = fn[test][2][0]
-        for guard, op, args in fn[test + 1:]:
-            if guard.lstrip("!") == pred or pred in (_reg(a) for a in args[1:]):
-                uses.append(op)
-            if args and args[0] == pred:
-                break
+    for guard, op, args in fn[test + 1:]:
+        if guard.lstrip("!") == pred or pred in (_reg(a) for a in args[1:]):
+            uses.append(op)
+        if args and args[0] == pred:
+            break
     return uses
 
 

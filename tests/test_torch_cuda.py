@@ -1,7 +1,7 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
 rows, the stream walks with the TPU schedules, the binary walk, the
-dependent-cursor, leaf-row, walk-visit, visit-shape and matrix-unit
-microbenchmarks) against their plain PyTorch versions, on the card.
+dependent-cursor, leaf-row, walk-visit, visit-shape, matrix-unit and
+op-cost microbenchmarks) against their plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -23,9 +23,10 @@ from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced, 
                                   stream_walk)
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
                                             leaf_rows_plain, reset_launches)
-from surf_tpu_torch.micro import (_mxu, cond_visit, dep_chain, leaf_groups, leaf_visit,
-                                  mask_reduce, mxu_parts, mxu_pltd, mxu_tiles, quant_visit,
-                                  stack_visit, visit_bodies, visit_cost, visit_parts)
+from surf_tpu_torch.micro import (_mxu, cond_visit, dep_chain, lane_extract, lane_splat,
+                                  leaf_groups, leaf_visit, mask_reduce, mxu_parts, mxu_pltd,
+                                  mxu_tiles, quant_visit, spec_visit, stack_visit, visit_bodies,
+                                  visit_cost, visit_parts, walk_interleave)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
@@ -490,6 +491,59 @@ def test_mxu_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         mxu_pltd.mxu_pltd(*(x.cpu() if i == 2 else x for i, x in
                             enumerate(mxu_pltd.make_data(cuda, 2))))
+
+
+# name: (module, wrapper, data makers, check size) of the op-cost micros;
+# lane_splat's plain version is visit_parts' base.
+OP_MICRO = {
+    **{f"lane_splat_{v}": (lane_splat, lane_splat.lane_splat,
+                           (lane_splat.make_data, visit_parts.make_vote_data), 64)
+       for v in lane_splat.VARIANTS},
+    **{f"lane_extract_{v}": (lane_extract, lane_extract.lane_extract,
+                             (lane_extract.make_data, lane_extract.make_vote_data), 32)
+       for v in lane_extract.VARIANTS},
+    **{f"walk_interleave_{v}": (walk_interleave, walk_interleave.walk_interleave,
+                                (walk_interleave.make_data, walk_interleave.make_vote_data), 32)
+       for v in walk_interleave.VARIANTS},
+    **{f"spec_visit_{v}": (spec_visit, spec_visit.spec_visit,
+                           (spec_visit.make_data, spec_visit.make_jump_data), 512)
+       for v in spec_visit.VARIANTS},
+}
+
+
+@pytest.mark.parametrize("name", list(OP_MICRO))
+def test_op_micro_matches_plain(cuda, name):
+    """Each op-cost microbenchmark kernel against its plain version (the
+    wrapper on CPU tensors) on the script's data and on the module's
+    test-only data at the check size, every output bit for bit, and its
+    launch count."""
+    mod, fn, makers, n = OP_MICRO[name]
+    variant = name[len(mod.__name__.rsplit(".", 1)[1]) + 1:]
+    for make in makers:
+        data = make(cuda)
+        mod.reset_launches()
+        got = fn(*data, variant, n)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES[name] == 1
+        want = fn(*(x.cpu() for x in data), variant, n)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_op_micro_wrappers_reject_bad_inputs(cuda):
+    """A CPU / CUDA mix, a short x, an unknown variant and no visits raise."""
+    table, x = lane_splat.make_data(cuda)
+    with pytest.raises(ValueError):
+        lane_splat.lane_splat(table.cpu(), x, "bcast_1x128", 8)
+    with pytest.raises(ValueError):
+        lane_extract.lane_extract(table, x[:512].contiguous(), "e8_v0", 16)
+    with pytest.raises(ValueError):
+        walk_interleave.walk_interleave(table, x, "inter3", 8)
+    rows, rays = spec_visit.make_data(cuda)
+    with pytest.raises(ValueError):
+        spec_visit.spec_visit(rows, rays.cpu(), "w2", 64)
+    with pytest.raises(ValueError):
+        spec_visit.spec_visit(rows, rays, "cur", 0)
 
 
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
