@@ -7,13 +7,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device: requires CUDA, prints the card's name and power limit;
   2. build: compiles surf_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
      process per source, all started together;
-  3. kernel: the leaf-row kernel against its plain PyTorch version on the
-     card, at the bench's shapes (512x512 = 262,144 rays of the indoor
-     scene, 2048-ray packets): primary rays and one bounce's rays, closest
-     hit, any-hit trim and the overflow sweep (forced with cap_rows=8),
-     with one all-dead packet.  Expected bit-identical (--fmad=false);
-     else the gate of the JAX tests: prim equal except coincident-t ties,
-     t within rtol 1e-6;
+  3. kernel: the leaf-row kernel (leaf_rows_closest, leaf_rows_any: live
+     compaction, row splits, the (t, position) merge) and the first
+     design's kernel on the same function (leaf_rows_pr1) against the plain
+     PyTorch version on the card, at the bench's shapes (512x512 = 262,144
+     rays of the indoor scene, 2048-ray packets): primary rays and one
+     bounce's rays, closest hit, any-hit trim and the overflow sweep
+     (forced with cap_rows=8), with one all-dead packet; then the inputs of
+     every leaf-row call of an untimed 512x512 1-spp bench frame (32 waves,
+     closest and any), captured by a spy.  Bit-identical (--fmad=false) or
+     the phase fails; each set timed new against the first design, in
+     turns, with its bound and live share; the SASS instructions a record
+     test of both designs and their ptxas registers;
   3b. inst kernel: the instanced leaf-row kernel against its plain version
      on the pure two-level stress scene (32 instances, 512x512 primary
      rays and one bounce's rays, 2048-ray packets, one all-dead packet):
@@ -173,6 +178,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -465,7 +471,94 @@ def _ray_sets(primary, bounce, n, dev, t_any_primary, cap):
     }
 
 
+def _bits_same(got, want) -> bool:
+    """Every output equal bit for bit (a NaN t_max comes back as itself)."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want))
+
+
+def _leaf_bound(table, lists, n_rows, rays):
+    """(bound ms, what bounds it, tests, live share) of a leaf-row call:
+    the tests of its live rays (t_max > 1e-5) against its lists' rows."""
+    g = lists.shape[0]
+    live = (rays[6] > leaf_rows.EPS).view(g, -1).sum(1)
+    rows = torch.where(n_rows < 0, table.shape[0], n_rows)
+    tests = float((rows * live).sum()) * 8
+    bound_ms, bound_by = _bound(tests * MT_FLOPS,
+                                _nbytes(table, lists, n_rows, rays) + 16 * rays.shape[1])
+    return bound_ms, bound_by, tests, float(live.sum()) / rays.shape[1]
+
+
+def _new_vs_pr1(args, reps: int, dev: torch.device):
+    """(new ms, first design's ms) of one leaf-row call, timed in turns:
+    first design, new, new, first design; each the mean of its two."""
+    pr1 = [_time_ms(lambda: leaf_rows.leaf_rows_pr1(*args), reps, dev)]
+    new = [_time_ms(lambda: leaf_rows.leaf_rows(*args), reps, dev) for _ in range(2)]
+    pr1.append(_time_ms(lambda: leaf_rows.leaf_rows_pr1(*args), reps, dev))
+    return sum(new) / 2, sum(pr1) / 2
+
+
+def _bench_waves(scene, dev, w, h):
+    """The leaf-row calls of one untimed w x h 1-spp bench frame, in order:
+    (wave, closest or any, its inputs), captured by a spy on bits.leaf_rows."""
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    calls = []
+    real = bits.leaf_rows
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with mock.patch.object(bits, "leaf_rows", spy):
+        _render(scene, cfg, cam, dev, 0, 1)
+    _sync(dev)
+    waves, seen = [], {False: 0, True: 0}
+    for args, kw in calls:
+        trim = bool(args[5])
+        if len(args) != 6 or leaf_rows.entry_point(**kw, trim=trim) not in leaf_rows.LIVE_ENTRY_POINTS:
+            raise AssertionError(f"the bench frame called leaf_rows with {len(args)} {kw}")
+        waves.append((seen[trim], "any" if trim else "closest", args))
+        seen[trim] += 1
+    if seen[False] != seen[True]:
+        raise AssertionError(f"{seen[False]} closest calls against {seen[True]} any calls")
+    return waves
+
+
+def _leaf_sass(say) -> dict:
+    """SASS instructions a record test of the two designs' kernels and
+    their ptxas registers, found by entry name: the smallest loop that
+    holds a row's 8 record tests (8 or more MUFU.RCP, one reciprocal a
+    test; the row loop, unrolled over them), less the loops nested in it
+    (the live kernel's exact redo of a row), over 8.  A static count: the
+    branches around the division's and the redo's rare paths count once."""
+    regs = {}
+    log = _build.build().with_suffix(".log")
+    for ln in _ptxas_summary(log.read_text()) if log.exists() else []:
+        name, rest = ln.split(": ", 1)
+        regs[name] = rest
+    out = {}
+    for entry in leaf_rows.LIVE_ENTRY_POINTS + leaf_rows.PR1_ENTRY_POINTS:
+        loops = _visit.loop_bodies(entry)
+        rows = [(lo, hi, ops) for lo, hi, ops in loops if ops.count("MUFU.RCP") >= 8]
+        if not rows:
+            raise AssertionError(f"{entry}: no loop holds a row's record tests")
+        lo, hi, ops = min(rows, key=lambda x: len(x[2]))
+        inner = [(a, b, o) for a, b, o in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]
+        outer = [x for x in inner if not any(y[0] <= x[0] and x[1] <= y[1] and y is not x
+                                             for y in inner)]
+        own = Counter(ops) - sum((Counter(o) for _, _, o in outer), Counter())
+        n_own = sum(own.values())
+        lds = {op: k for op, k in own.items() if op.startswith("LDS")}
+        out[entry] = n_own / 8
+        say(f"[3 kernel] SASS {entry}: {n_own} instructions a row of 8 record tests "
+            f"({len(ops) - n_own} more in {len(outer)} nested loop(s)) = {n_own / 8:.2f} a "
+            f"test, loads {lds}; ptxas {regs.get(_visit.kernel_name(entry), 'not found')}")
+    return out
+
+
 def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
+    """The two designs of leaf_rows_closest / leaf_rows_any against the
+    plain version: phase 3's six sets and every wave of a bench frame."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
@@ -476,28 +569,54 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
         rays, lists, n_rows = bits.prepare(scene.trace, o, d, tm, act, BLOCK, cap)
         args = (scene.trace.ltab, lists, n_rows, rays, BLOCK, any_hit)
         got = leaf_rows.leaf_rows(*args)
+        old = leaf_rows.leaf_rows_pr1(*args)
         want = leaf_rows.leaf_rows_plain(*args)
         _sync(dev)
-        bit, err, gate = _compare(got, want)
-        if not (bit or gate):
+        bit, err, _ = _compare(got, want)
+        if not bit:
             raise AssertionError(f"{label}: kernel disagrees with the plain version "
                                  f"(max |dt| {err})")
-        k_ms = _time_ms(lambda: leaf_rows.leaf_rows(*args), 20, dev)
+        if not _bits_same(old, want):
+            raise AssertionError(f"{label}: the first design's kernel disagrees with the "
+                                 f"plain version")
+        k_ms, pr1_ms = _new_vs_pr1(args, 20, dev)
         p_ms = _time_ms(lambda: leaf_rows.leaf_rows_plain(*args), 3, dev)
-        E = scene.trace.ltab.shape[0]
-        rows = torch.where(n_rows < 0, E, n_rows)
-        tests = float((rows * _active_per_packet(act, lists.shape[0], BLOCK)).sum()) * 8
-        bound_ms, bound_by = _bound(tests * MT_FLOPS, _nbytes(*args[:4]) + 16 * rays.shape[1])
+        bound_ms, bound_by, tests, live = _leaf_bound(*args[:4])
         sweeps = int((n_rows < 0).sum())
-        say(f"[3 kernel] {label}: {'bit-identical' if bit else 'within gate'}, "
-            f"max |dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms ({bound_by}, {tests:.4g} tests), "
+        say(f"[3 kernel] {label}: bit-identical, "
+            f"max |dt| {err:.3g}, kernel {k_ms:.4f} ms (first design {pr1_ms:.4f} ms, "
+            f"{pr1_ms / k_ms:.2f}x), plain {p_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {tests:.4g} tests), live {live:.1%}, "
             f"packets {lists.shape[0]} (sweep {sweeps}), cap {lists.shape[1]}, "
             f"mean list {float(n_rows.clamp(min=0).float().mean()):.1f} rows")
         rec = out["leaf_rows_any" if any_hit else "leaf_rows_closest"]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         if label in ("bounce/closest", "bounce/any_hit"):
             rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    # Every wave of a bench frame: the inputs of its closest and any calls,
+    # each held bit for bit to the plain version and timed in both designs.
+    total = {"new": 0.0, "pr1": 0.0, "bound": 0.0}
+    for wave, kind, args in _bench_waves(scene, dev, w, h):
+        got = leaf_rows.leaf_rows(*args)
+        want, p_ms = _time_once(lambda: leaf_rows.leaf_rows_plain(*args), dev)
+        if not _bits_same(got, want) or not _bits_same(leaf_rows.leaf_rows_pr1(*args), want):
+            raise AssertionError(f"wave {wave} {kind}: a kernel disagrees with the plain version")
+        k_ms, pr1_ms = _new_vs_pr1(args, 10, dev)
+        bound_ms, bound_by, tests, live = _leaf_bound(*args[:4])
+        total["new"] += k_ms
+        total["pr1"] += pr1_ms
+        total["bound"] += bound_ms
+        lists = args[1]
+        say(f"[3 kernel] wave {wave:2d} {kind:7s} width {args[3].shape[1]:6d}, live {live:6.1%}, "
+            f"bit-identical, kernel {k_ms:.4f} ms, first design {pr1_ms:.4f} ms "
+            f"({pr1_ms / k_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, {tests:.4g} tests), "
+            f"plain {p_ms:.1f} ms, mean list "
+            f"{float(args[2].clamp(min=0).float().mean()):.1f} rows of {lists.shape[1]}")
+    say(f"[3 kernel] one {w}x{h} spp's leaf-row calls: kernel {total['new']:.3f} ms, "
+        f"first design {total['pr1']:.3f} ms, bound {total['bound']:.3f} ms")
+    if dev.type == "cuda":
+        _leaf_sass(say)
     return out
 
 

@@ -132,13 +132,18 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        from .leaf_rows import ENTRY_POINTS
+        from .leaf_rows import ENTRY_POINTS, LIVE_ENTRY_POINTS, PR1_ENTRY_POINTS
 
-        for name in ENTRY_POINTS:
+        for name in (*ENTRY_POINTS, *PR1_ENTRY_POINTS):
             fn = getattr(lib, name)
-            # table, table_rows, lists, cap, n_rows, rays, n_rays,
-            # block_rays, t_in, r_in, u_in, v_in, t, r, u, v, stream
-            fn.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p, p, p, p, p]
+            if name in LIVE_ENTRY_POINTS:
+                # table, table_rows, lists, cap, n_rows, rays, n_rays,
+                # block_rays, split_rows, t, r, u, v, keys, arrivals, stream
+                fn.argtypes = [p, i, p, i, p, p, i, i, i, p, p, p, p, p, p, p]
+            else:
+                # table, table_rows, lists, cap, n_rows, rays, n_rays,
+                # block_rays, t_in, r_in, u_in, v_in, t, r, u, v, stream
+                fn.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p, p, p, p, p]
             fn.restype = i
         for name in ("inst_rows_closest", "inst_rows_any"):
             fn = getattr(lib, name)
@@ -196,9 +201,10 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p]
             fn.restype = i
         # The kernel an entry point launches (entry.cuh) and its device name.
-        for name in (PARTS_ENTRY_POINTS + COND_ENTRY_POINTS + BODY_ENTRY_POINTS
-                     + SPLAT_ENTRY_POINTS + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS
-                     + SPEC_ENTRY_POINTS + MXU_ENTRY_POINTS):
+        for name in (LIVE_ENTRY_POINTS + PR1_ENTRY_POINTS + PARTS_ENTRY_POINTS
+                     + COND_ENTRY_POINTS + BODY_ENTRY_POINTS + SPLAT_ENTRY_POINTS
+                     + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS + SPEC_ENTRY_POINTS
+                     + MXU_ENTRY_POINTS):
             fn = getattr(lib, f"{name}_kernel")
             fn.argtypes = []
             fn.restype = p

@@ -8,6 +8,16 @@ the hand-written kernel of ``csrc/leaf_rows.cu``; on a CPU tensor it runs
 ``leaf_rows_plain``, the plain PyTorch version of the same function, which
 the CPU tests exercise and the chip smoke test compares the kernel with.
 
+The f32 sequential Möller–Trumbore closest hit and any-hit trim (the
+entry points ``leaf_rows_closest`` and ``leaf_rows_any``, which every
+``bitsru8`` frame runs) launch ``leaf_rows_live_kernel``: only live rays
+(t_max > 1e-5) are tested, each list's rows are split into work items of
+``split_rows(n)`` rows, and the splits merge through an exact (t, list
+position) key in a scratch that this module allocates once per device and
+size (all zero between calls).  ``leaf_rows_pr1`` launches the first
+design's kernel on the same function, to time the two side by side; no
+algo reaches it.
+
 The instantiation is chosen by five arguments, as the TPU kernel's flags
 choose its body:
   record     "mt": Möller–Trumbore on ``LeafTable.table`` records (v0, e1,
@@ -50,6 +60,12 @@ SLOT_LANE = {"mt": 9, "bw": 12}
 
 # The plain version tests this many (ray, triangle) pairs per torch op.
 PLAIN_PAIRS = 1 << 24
+# Rows of one work item of leaf_rows_live_kernel (leaf_rows_closest, _any):
+# SPLIT_ROWS in a call of at least WIDE_RAYS rays, NARROW_SPLIT_ROWS in a
+# narrower one, which has fewer lists to fill the card with.
+SPLIT_ROWS = 32
+NARROW_SPLIT_ROWS = 16
+WIDE_RAYS = 131072
 
 # (record, merge, precision, carry, trim) of each entry point of leaf_rows.cu.
 ENTRY_POINTS = {
@@ -66,9 +82,19 @@ ENTRY_POINTS = {
     "leaf_rows_bw_ilp_carry_closest": ("bw", "ilp", "f32", True, False),
 }
 _NAME_OF = {v: k for k, v in ENTRY_POINTS.items()}
+# The entry points of leaf_rows_live_kernel (the split merge's scratch).
+LIVE_ENTRY_POINTS = ("leaf_rows_closest", "leaf_rows_any")
+# The first design's kernel on the function of leaf_rows_closest and
+# leaf_rows_any (trim False, True), reached only through leaf_rows_pr1.
+PR1_ENTRY_POINTS = ("leaf_rows_closest_pr1", "leaf_rows_any_pr1")
 
 # Kernel launches since the last reset, per entry point of leaf_rows.cu.
-LAUNCHES = dict.fromkeys(ENTRY_POINTS, 0)
+LAUNCHES = dict.fromkeys((*ENTRY_POINTS, *PR1_ENTRY_POINTS), 0)
+
+# The live kernel's merge scratch per device: (keys int64, arrivals int32),
+# zeroed once when allocated and left zero by every launch.  Calls share it,
+# so they must run on one stream at a time (as every render path does).
+_SCRATCH: dict = {}
 
 
 def reset_launches() -> None:
@@ -119,11 +145,46 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
     rows: the kernel for CUDA tensors, the plain version for CPU tensors."""
     name = entry_point(record, merge, precision, carry is not None, trim)
     _check(table, lists, n_rows, rays, block_rays, carry)
-    device = table.device
-    if device.type == "cpu":
+    if table.device.type == "cpu":
         return leaf_rows_plain(table, lists, n_rows, rays, block_rays, trim,
                                record=record, merge=merge, precision=precision,
                                carry=carry)
+    return _launch(name, table, lists, n_rows, rays, block_rays, carry)
+
+
+def leaf_rows_pr1(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
+                  rays: torch.Tensor, block_rays: int, trim: bool = False):
+    """``leaf_rows`` (f32 sequential Möller–Trumbore, no carry) through the
+    first design's kernel: one thread per ray, every lane, one block per 256
+    rays walking the whole list.  The same function as ``leaf_rows_closest``
+    and ``leaf_rows_any``; the plain version for CPU tensors."""
+    _check(table, lists, n_rows, rays, block_rays, None)
+    if table.device.type == "cpu":
+        return leaf_rows_plain(table, lists, n_rows, rays, block_rays, trim)
+    return _launch(PR1_ENTRY_POINTS[int(bool(trim))], table, lists, n_rows, rays,
+                   block_rays, None)
+
+
+def split_rows(n_rays: int) -> int:
+    """Rows of one work item of the live kernel in a call of n_rays rays."""
+    return SPLIT_ROWS if n_rays >= WIDE_RAYS else NARROW_SPLIT_ROWS
+
+
+def _scratch(device: torch.device, n: int):
+    """The live kernel's merge scratch for n rays: keys [>= n] int64 and
+    arrivals [>= n / 256] int32, zero (a larger call replaces it)."""
+    keys, arrivals = _SCRATCH.get(device, (None, None))
+    if keys is None or keys.numel() < n:
+        keys = torch.zeros(n, dtype=torch.int64, device=device)
+        arrivals = torch.zeros(max(1, n // 256), dtype=torch.int32, device=device)
+        _SCRATCH[device] = keys, arrivals
+    return keys, arrivals
+
+
+def _launch(name, table, lists, n_rows, rays, block_rays, carry):
+    """Launch entry point ``name`` on CUDA tensors (checked by ``_check``),
+    or raise."""
+    device = table.device
     if device.type != "cuda":
         raise ValueError(f"leaf_rows runs on cpu or cuda, not {device}")
     lib = _build.library()
@@ -145,13 +206,17 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
     r = torch.empty(n, dtype=torch.int32, device=device)
     u = torch.empty(n, dtype=torch.float32, device=device)
     v = torch.empty(n, dtype=torch.float32, device=device)
-    c_in = [x.data_ptr() for x in carry] if carry is not None else [None] * 4
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name)(
-        table.data_ptr(), table.shape[0], lists.data_ptr(), lists.shape[1],
-        n_rows.data_ptr(), rays.data_ptr(), n, block_rays, *c_in,
-        t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr(),
-        ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    head = (table.data_ptr(), table.shape[0], lists.data_ptr(), lists.shape[1],
+            n_rows.data_ptr(), rays.data_ptr(), n, block_rays)
+    outs = (t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr())
+    if name in LIVE_ENTRY_POINTS:
+        keys, arrivals = _scratch(torch.device("cuda", torch.cuda.current_device()), n)
+        err = getattr(lib, name)(*head, split_rows(n), *outs, keys.data_ptr(),
+                                 arrivals.data_ptr(), stream)
+    else:
+        c_in = [x.data_ptr() for x in carry] if carry is not None else [None] * 4
+        err = getattr(lib, name)(*head, *c_in, *outs, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1

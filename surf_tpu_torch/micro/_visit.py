@@ -262,7 +262,7 @@ def measure_checked(name: str, fn, plain, variants, data_sets, check: int, sizes
 
 
 _SASS: dict = {}
-_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 
 
 def kernel_name(entry: str) -> str:
@@ -278,10 +278,11 @@ def kernel_name(entry: str) -> str:
     return name.value.decode()
 
 
-def _sass(entry: str) -> list:
+def _sass(entry: str, addresses: bool = False) -> list:
     """The instructions, in order, of the kernel that entry point ``entry``
     launches (``cuobjdump -sass`` of the kernel library), each (guard
-    predicate or "", opcode, [operands])."""
+    predicate or "", opcode, [operands]), with ``addresses`` (address,
+    guard, opcode, [operands])."""
     so = _build.build()
     if so not in _SASS:
         tool = Path(_build._nvcc()).with_name("cuobjdump")
@@ -291,8 +292,10 @@ def _sass(entry: str) -> list:
     fns = [fn for fn in _SASS[so].split("Function : ")[1:] if fn.split(None, 1)[0] == kernel]
     if len(fns) != 1:
         raise RuntimeError(f"{len(fns)} kernels named {kernel} ({entry}) in the SASS")
-    return [(g.strip().lstrip("@"), op, [a.strip() for a in args.split(",") if a.strip()])
-            for g, op, args in _INSTRUCTION.findall(fns[0])]
+    out = [(int(at, 16), g.strip().lstrip("@"), op,
+            [a.strip() for a in args.split(",") if a.strip()])
+           for at, g, op, args in _INSTRUCTION.findall(fns[0])]
+    return out if addresses else [x[1:] for x in out]
 
 
 def _matches(op: str, key: str) -> bool:
@@ -322,6 +325,20 @@ def sass_counts(entry: str, opcodes, words: bool = False) -> dict:
             if _matches(op, k):
                 counts[k] += _words(op) if words else 1
     return counts
+
+
+def loop_bodies(entry: str) -> list:
+    """Every loop of the kernel that entry point ``entry`` launches: for
+    each backward branch (a BRA to a lower address), (its target's address,
+    its own address, the opcodes from the one to the other, in order)."""
+    fn = _sass(entry, addresses=True)
+    loops = []
+    for at, _, op, args in fn:
+        if op.startswith("BRA") and args and args[-1].startswith("0x"):
+            target = int(args[-1], 16)
+            if target < at:
+                loops.append((target, at, [o for a, _, o, _ in fn if target <= a <= at]))
+    return loops
 
 
 def _reg(operand: str) -> str:

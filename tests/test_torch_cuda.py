@@ -21,8 +21,9 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
-from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows,
-                                            leaf_rows_plain, reset_launches)
+from surf_tpu_torch.accel import leaf_rows as leaf_rows_mod
+from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows, leaf_rows_plain,
+                                            leaf_rows_pr1, reset_launches)
 from surf_tpu_torch.micro import (_mxu, cond_visit, dep_chain, lane_extract, lane_splat,
                                   leaf_groups, leaf_visit, mask_reduce, mxu_parts, mxu_pltd,
                                   mxu_tiles, quant_visit, spec_visit, stack_visit, visit_bodies,
@@ -32,6 +33,8 @@ from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
 from surf_tpu_torch.wavefront.integrator import (RenderConfig, initial_seeds,
                                                  render_frame_seeded)
+
+from leaf_split_data import adversarial
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +106,68 @@ def test_render_through_kernel_matches_plain(indoor, cuda):
     assert torch.isfinite(img_k).all() and (img_k >= 0).all()
     assert torch.equal(img_k, img_p)
     assert torch.equal(seed_k, seed_p)
+
+
+def _bits_equal(got, want):
+    """Every output equal bit for bit (a NaN t_max comes back as itself)."""
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+LIVE_SHARES = [0.01, 0.4, 1.0]
+
+
+@pytest.mark.parametrize("packets", [1, 4])
+@pytest.mark.parametrize("split_rows", [1, 4, 32])
+@pytest.mark.parametrize("live_share", LIVE_SHARES)
+@pytest.mark.parametrize("trim", [False, True], ids=["closest", "any_hit"])
+def test_live_kernel_matches_plain_on_adversarial_data(cuda, trim, live_share, split_rows,
+                                                       packets):
+    """leaf_rows_closest / leaf_rows_any (live compaction, row splits, the
+    (t, position) merge) against the plain version and the first design's
+    kernel: equal-t copies of one triangle either side of split
+    boundaries, a 0-row list, a sweep, an all-dead packet, inert rows, dead
+    and barely live t_max; one launch a call, and the merge's scratch left
+    zero."""
+    table, lists, n_rows, rays, R = (x.to(cuda) if torch.is_tensor(x) else x
+                                     for x in adversarial(seed=7, live_share=live_share))
+    lists, n_rows = lists[:packets].contiguous(), n_rows[:packets].contiguous()
+    rays = rays[:, :packets * R].contiguous()
+    args = (table, lists, n_rows, rays, R, trim)
+    name = "leaf_rows_any" if trim else "leaf_rows_closest"
+    reset_launches()
+    with mock.patch.object(leaf_rows_mod, "split_rows", lambda n: split_rows):
+        got = leaf_rows(*args)
+    assert LAUNCHES[name] == 1
+    old = leaf_rows_pr1(*args)
+    assert LAUNCHES[name + "_pr1"] == 1
+    want = leaf_rows_plain(*args)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+    _bits_equal(old, want)
+    for x in leaf_rows_mod._SCRATCH[torch.device("cuda", torch.cuda.current_device())]:
+        assert not bool(x.any())
+
+
+@pytest.mark.parametrize("packets", [1, 4])
+@pytest.mark.parametrize("live_share", LIVE_SHARES)
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "sweep"])
+def test_live_kernel_matches_plain_on_indoor_packets(indoor, cuda, mode, live_share, packets):
+    """The same on the indoor scene's lists, 2048-ray packets at three
+    shares of live rays."""
+    o, d, _ = _rays(packets * 2048, seed=3, device=cuda)
+    act = torch.rand(o.shape[0], generator=torch.Generator().manual_seed(5)) < live_share
+    act = act.to(cuda)
+    tmax = torch.full((o.shape[0],), 6.0 if mode == "any_hit" else 1e30, device=cuda)
+    rays, lists, n_rows = bits.prepare(indoor.trace, o, d, tmax, act, 2048,
+                                       cap_rows=8 if mode == "sweep" else 0)
+    args = (indoor.trace.ltab, lists, n_rows, rays, 2048, mode == "any_hit")
+    got = leaf_rows(*args)
+    old = leaf_rows_pr1(*args)
+    want = leaf_rows_plain(*args)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+    _bits_equal(old, want)
 
 
 # The entry points of leaf_rows.cu beyond the f32 sequential MT pair.
