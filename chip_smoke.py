@@ -94,7 +94,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      to the skip kernel's output, specN / specbN's records equal to its
      but at coincident-t ties (any-hit: the same rays hit).  Prints ms per
      call, the bound (the tests the rows on the path need), visits per
-     packet and the rows tested over the rows on the path;
+     packet and the rows tested over the rows on the path; skip2 / ilvN's
+     kernel timed in turns with their first design (stream_walk_ilv_pr5,
+     bit-identical too) and the skip kernel, with the live share;
+  3g. ilv frame: the inputs of every stream-walk call of an untimed
+     512x512 1-spp ilv2 bench frame (32 waves, closest and any), captured
+     by a spy: the new ilv kernel bit-identical to the skip kernel, the
+     first design and the plain version, timed in turns with the first
+     design and the skip kernel, with width, live share and the bound per
+     wave and the sums per spp; the SASS instructions a slab test and a
+     triangle test of the skip kernel, the first ilv design and the new
+     one, and their ptxas registers;
   4f. schedule benches: one 512x512 @ 16 spp frame through each of
      SCHEDULE_BENCH at phase 4's seeds, held to phase 4's bitsru8 image by
      phase 4d's gates: frame time, rays/s, energy, launches, peak memory;
@@ -488,13 +498,21 @@ def _leaf_bound(table, lists, n_rows, rays):
     return bound_ms, bound_by, tests, float(live.sum()) / rays.shape[1]
 
 
+def _in_turns(fns: dict, reps: int, dev: torch.device) -> dict:
+    """Mean ms per call of each function, timed in turns: in order, then in
+    the reverse order (first design, new, new, first design); each the mean
+    of its two."""
+    ms = {k: 0.0 for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        ms[k] += _time_ms(fns[k], reps, dev) / 2
+    return ms
+
+
 def _new_vs_pr1(args, reps: int, dev: torch.device):
-    """(new ms, first design's ms) of one leaf-row call, timed in turns:
-    first design, new, new, first design; each the mean of its two."""
-    pr1 = [_time_ms(lambda: leaf_rows.leaf_rows_pr1(*args), reps, dev)]
-    new = [_time_ms(lambda: leaf_rows.leaf_rows(*args), reps, dev) for _ in range(2)]
-    pr1.append(_time_ms(lambda: leaf_rows.leaf_rows_pr1(*args), reps, dev))
-    return sum(new) / 2, sum(pr1) / 2
+    """(new ms, first design's ms) of one leaf-row call, timed in turns."""
+    ms = _in_turns({"pr1": lambda: leaf_rows.leaf_rows_pr1(*args),
+                    "new": lambda: leaf_rows.leaf_rows(*args)}, reps, dev)
+    return ms["new"], ms["pr1"]
 
 
 def _bench_waves(scene, dev, w, h):
@@ -1251,7 +1269,21 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
                 work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
                 want, p_ms = _time_once(
                     lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
-            k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
+            turns = ""
+            if walk == "ilv":  # the new design, the first and the skip kernel in turns
+                old = stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit)
+                if not all(torch.equal(x, y) for x, y in zip(old, want)):
+                    raise AssertionError(f"{algo} {label}: the first design differs from the "
+                                         f"plain version")
+                t = _in_turns({"pr5": lambda: stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit),
+                               "new": lambda: stream_walk.stream_walk(*args),
+                               "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
+                              10, dev)
+                k_ms = t["new"]
+                turns = (f"; in turns: first design {t['pr5']:.3f} ms ({t['pr5'] / k_ms:.2f}x), "
+                         f"skip kernel {t['skip']:.3f} ms; live {float(a.float().mean()):.1%}")
+            else:
+                k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"{algo} {label}: kernel differs from its plain version")
             if walk == "ilv":
@@ -1273,12 +1305,113 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
                 f"{bound_ms:.4f} ms ({bound_by}; live tests: {work[0]} slab, {work[1]} "
                 f"triangle); visits per packet mean {float(v[:, 0].float().mean()):.1f} max "
                 f"{int(v[:, 0].max())}; rows tested / on the path "
-                f"{tested / max(float(v[:, 0].sum()), 1.0):.3f}")
+                f"{tested / max(float(v[:, 0].sum()), 1.0):.3f}{turns}")
             name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"
             rec = out.setdefault(name, {"max_abs_err": 0.0})
             if algo == SCHEDULE_OF[walk] and label.startswith("bounce"):
                 rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
     return out
+
+
+def _walk_waves(scene, dev, w, h, algo):
+    """The stream-walk calls of one untimed w x h 1-spp bench frame of
+    ``algo``, in order: (wave, closest or any, its inputs), captured by a
+    spy on stream.stream_walk."""
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS, algo=algo)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    calls = []
+    real = stream.stream_walk
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with mock.patch.object(stream, "stream_walk", spy):
+        _render(scene, cfg, cam, dev, 0, 1)
+    _sync(dev)
+    waves, seen = [], {False: 0, True: 0}
+    for args, kw in calls:
+        if kw or len(args) != 7 or args[4] != algo:
+            raise AssertionError(f"the {algo} frame called stream_walk with {len(args)} {kw}")
+        any_hit = bool(args[5])
+        waves.append((seen[any_hit], "any" if any_hit else "closest", args))
+        seen[any_hit] += 1
+    if seen[False] != seen[True]:
+        raise AssertionError(f"{seen[False]} closest calls against {seen[True]} any calls")
+    return waves
+
+
+def _walk_sass(say) -> None:
+    """SASS instructions a slab test and a triangle test of the skip
+    kernel, the first ilv design and the new one (found by entry name),
+    with their ptxas registers.  The step loop is the kernel's largest
+    loop; its slab tests are its FMNMX over 10 (a
+    slab test's NaN-propagating min/max), its triangle tests the MUFU.RCP
+    outside the slab tests' span (one IEEE division a test; the first
+    design's node rows also divide 1/d, inside that span); a test's count
+    is its kind's span, first to last such instruction, over its tests.  A
+    static count: the division's rare path counts once."""
+    regs = {}
+    log = _build.build().with_suffix(".log")
+    for ln in _ptxas_summary(log.read_text()) if log.exists() else []:
+        name, rest = ln.split(": ", 1)
+        regs[name] = rest
+    for entry in _build.WALK_KERNELS:
+        ops = max(_visit.loop_bodies(entry), key=lambda x: len(x[2]))[2]
+        mnmx = [i for i, op in enumerate(ops) if op.startswith("FMNMX")]
+        rcp = [i for i, op in enumerate(ops) if op.startswith("MUFU.RCP")
+               and not (mnmx and mnmx[0] <= i <= mnmx[-1])]
+        slab = (mnmx[-1] - mnmx[0] + 1) / (len(mnmx) / 10) if mnmx else float("nan")
+        tri = (rcp[-1] - rcp[0] + 1) / len(rcp) if rcp else float("nan")
+        overlap = bool(mnmx and rcp) and rcp[0] < mnmx[-1] and mnmx[0] < rcp[-1]
+        say(f"[3g ilv frame] SASS {entry}: step loop {len(ops)} instructions, "
+            f"{len(mnmx) / 10:g} slab tests ({slab:.1f} a test), {len(rcp)} triangle tests "
+            f"({tri:.1f} a test){'; spans interleave' if overlap else ''}; ptxas "
+            f"{regs.get(_visit.kernel_name(entry), 'not found')}")
+
+
+def phase_ilv_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 5) -> None:
+    """Every stream-walk call of an untimed w x h 1-spp ilv2 bench frame:
+    the new design (stream_walk_ilv_{closest,any}) bit-identical to the
+    skip kernel, the first design and the plain version; timed in turns
+    with the first design and the skip kernel; bounded by the plain
+    version's tests of live rays.  Then the SASS counts."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    total = {"new": 0.0, "pr5": 0.0, "skip": 0.0, "bound": 0.0}
+    for wave, kind, args in _walk_waves(scene, dev, w, h, "ilv2"):
+        stream_t, rays, a, blk, algo, any_hit, depth = args
+        base = (stream_t, rays, a, blk)
+        g = a.shape[0] // blk
+        got = stream_walk.stream_walk(*args)
+        skip = stream_walk.stream_walk(*base, "skip", any_hit, depth)
+        old = stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit)
+        work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
+        want, p_ms = _time_once(lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
+        if not (_bits_same(got, skip) and _bits_same(old, skip) and _bits_same(got, want)):
+            raise AssertionError(f"wave {wave} {kind}: the ilv designs, the skip kernel and "
+                                 f"the plain version disagree")
+        t = _in_turns({"pr5": lambda: stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit),
+                       "new": lambda: stream_walk.stream_walk(*args),
+                       "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
+                      reps, dev)
+        work = work.sum(0).tolist()
+        bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS,
+                                    _nbytes(stream_t, rays, a, *got))
+        for k in ("new", "pr5", "skip"):
+            total[k] += t[k]
+        total["bound"] += bound_ms
+        v = want[4][:, 0].float()
+        say(f"[3g ilv frame] wave {wave:2d} {kind:7s} width {a.shape[0]:6d} ({g} packets), live {float(a.float().mean()):6.1%}, bit-identical to skip and "
+            f"plain, new {t['new']:.4f} ms, first design {t['pr5']:.4f} ms "
+            f"({t['pr5'] / t['new']:.2f}x), skip kernel {t['skip']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {p_ms:.1f} ms, visits mean "
+            f"{float(v.mean()):.1f} max {int(v.max())}")
+    say(f"[3g ilv frame] one {w}x{h} spp's walk calls: new {total['new']:.3f} ms, first "
+        f"design {total['pr5']:.3f} ms, skip kernel {total['skip']:.3f} ms, bound "
+        f"{total['bound']:.3f} ms")
+    if dev.type == "cuda":
+        _walk_sass(say)
 
 
 def phase_schedule_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
@@ -1303,7 +1436,8 @@ def phase_schedule_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
         img = _render(scene, cfg, cam, dev, 2 * spp, spp)
         _sync(dev)
         dt = time.perf_counter() - t0
-        mine = {k: stream_walk.LAUNCHES[k] for k in stream_walk.LAUNCHES if f"_{walk}_" in k}
+        mine = {k: stream_walk.LAUNCHES[k]
+                for k in (f"stream_walk_{walk}_closest", f"stream_walk_{walk}_any")}
         energy = _check_image(img, f"{algo} bench", spp)
         for name, k in mine.items():
             if k <= 0 and dev.type == "cuda":
@@ -1692,10 +1826,11 @@ KERNELS = {
     **{f"bvh_walk_{m}": ("surf_tpu_torch/csrc/bvh_walk.cu",
                          "surf_tpu/accel/pallas_traverse.py:193") for m in ("closest", "any")},
     # ilv serves skip2 (_walk_block_pair, pallas_wide.py:314) as ilv2
+    **{f"stream_walk_ilv_{m}": ("surf_tpu_torch/csrc/stream_walk_ilv.cu",
+                                "surf_tpu/accel/pallas_wide.py:264") for m in ("closest", "any")},
     **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
                                 f"surf_tpu/accel/pallas_wide.py:{line}")
-       for a, line in (("ilv", 264), ("spec", 339), ("specb", 514))
-       for m in ("closest", "any")},
+       for a, line in (("spec", 339), ("specb", 514)) for m in ("closest", "any")},
     **{f"dep_chain_{v}": ("surf_tpu_torch/csrc/dep_micro.cu", "scripts/tpu_dep_micro.py:222")
        for v in dep_chain.VARIANTS},
     # leaf_groups_full also serves scripts/tpu_leaf_kernel_micro.py:69, whose
@@ -1762,6 +1897,7 @@ def main() -> int:
     plain_imgs = timed("5c parity", phase_walk_parity, dev)
     timed("5e parity", phase_bits_parity, dev)
     kernels.update(timed("3f schedules", phase_schedule_kernel, dev))
+    timed("3g ilv frame", phase_ilv_frame, dev)
     launches.update(timed("4f schedules", phase_schedule_bench, dev, bench_img))
     timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
     for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro),

@@ -33,6 +33,13 @@ NVCC_FLAGS = (
 # these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
+# skip2 / ilvN's first design (stream_walk.cu): reached only to time it
+# beside stream_walk_ilv_{closest,any} (stream_walk_ilv.cu).
+ILV_PR5_ENTRY_POINTS = ("stream_walk_ilv_closest_pr5", "stream_walk_ilv_any_pr5")
+# The walk kernels with an entry.cuh getter: the skip walk, the first ilv
+# design and stream_walk_ilv.cu's.
+WALK_KERNELS = ("stream_walk_skip_closest", "stream_walk_skip_any", *ILV_PR5_ENTRY_POINTS,
+                "stream_walk_ilv_closest", "stream_walk_ilv_any")
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
                                                      "depb8", "depb8all"))
 GROUP_ENTRY_POINTS = tuple(f"leaf_groups_{v}" for v in ("full", "nodiv", "noext", "halftri"))
@@ -151,11 +158,10 @@ def library() -> ctypes.CDLL:
             # n_rays, block_rays, t, r, u, v, inst, stream
             fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in WALK_ENTRY_POINTS:
+        for name in WALK_ENTRY_POINTS + ILV_PR5_ENTRY_POINTS:
             fn = getattr(lib, name)
             # stream, n_entries, rays, act, n_rays, block_rays, arg (stack
-            # depth, packets per block or rows per window), t, r, u, v,
-            # visits, stream
+            # depth, ilvN's N or rows per window), t, r, u, v, visits, stream
             fn.argtypes = [p, i, p, p, i, i, i, p, p, p, p, p, p]
             fn.restype = i
         for name in DEP_ENTRY_POINTS + VISIT_ENTRY_POINTS + QUANT_ENTRY_POINTS:
@@ -204,7 +210,7 @@ def library() -> ctypes.CDLL:
         for name in (LIVE_ENTRY_POINTS + PR1_ENTRY_POINTS + PARTS_ENTRY_POINTS
                      + COND_ENTRY_POINTS + BODY_ENTRY_POINTS + SPLAT_ENTRY_POINTS
                      + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS + SPEC_ENTRY_POINTS
-                     + MXU_ENTRY_POINTS):
+                     + MXU_ENTRY_POINTS + WALK_KERNELS):
             fn = getattr(lib, f"{name}_kernel")
             fn.argtypes = []
             fn.restype = p

@@ -34,9 +34,12 @@ never hit); the caller nudges zero direction components, so 1/d is
 finite.
 
 On a CUDA tensor ``stream_walk`` launches the hand-written kernels of
-``csrc/stream_walk.cu``; on a CPU tensor it runs ``stream_walk_plain``,
-the plain PyTorch version, which walks all packets in lockstep, each with
-its own cursor.
+``csrc/stream_walk.cu`` (``skip2`` and ``ilvN``: ``csrc/stream_walk_ilv.cu``,
+one packet a work item, its lanes spread over a cluster of 8 blocks, one
+ray a thread); on a CPU tensor it runs ``stream_walk_plain``, the plain
+PyTorch version, which walks all packets in lockstep, each with its own
+cursor.  ``stream_walk_ilv_pr5`` launches skip2 / ilvN's first design (N
+packets a block), to time it beside ``stream_walk``; no algo reaches it.
 
 Inputs (all on one device):
   stream  [E, 128] f32    the stream (node and leaf rows, lanes 9/10 meta)
@@ -70,8 +73,9 @@ K_VISITS = 32       # the stack walk's belt (n_entries + K_VISITS); spec's group
 SPECB_VISITS = 8    # specb's group of windows between any-hit checks
 
 # Kernel launches since the last reset, per entry point of stream_walk.cu
-# (one kernel template per walk of parse_algo).
-LAUNCHES = dict.fromkeys(_build.WALK_ENTRY_POINTS, 0)
+# and stream_walk_ilv.cu (one kernel template per walk of parse_algo, and
+# the first ilv design).
+LAUNCHES = dict.fromkeys((*_build.WALK_ENTRY_POINTS, *_build.ILV_PR5_ENTRY_POINTS), 0)
 
 
 def parse_algo(algo: str) -> tuple[str, int]:
@@ -133,12 +137,33 @@ def stream_walk(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
     ``max_depth`` is the stream's node-tree depth (it sizes the stack
     walk's stack)."""
     walk, width = _check(stream, rays, act, block_rays, algo)
-    # the kernel's one size argument: the stack's depth, packets per block
-    # (ilv) or rows per window (spec, specb); the skip walk ignores it
-    arg = stack_depth(max_depth) if walk == "stack" else width
-    device = stream.device
-    if device.type == "cpu":
+    if stream.device.type == "cpu":
         return stream_walk_plain(stream, rays, act, block_rays, algo, any_hit, max_depth)
+    # the kernel's one size argument: the stack's depth, ilvN's N or rows
+    # per window (spec, specb); the skip walk ignores it
+    arg = stack_depth(max_depth) if walk == "stack" else width
+    name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"
+    return _launch(name, stream, rays, act, block_rays, arg)
+
+
+def stream_walk_ilv_pr5(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
+                        block_rays: int, algo: str = "skip2", any_hit: bool = False):
+    """``stream_walk`` of a skip2 / ilvN algo through the first design's
+    kernel (N packets a block, one barrier for all); the plain version for
+    CPU tensors."""
+    walk, width = _check(stream, rays, act, block_rays, algo)
+    if walk != "ilv":
+        raise ValueError(f"{algo} is not skip2 or ilvN")
+    if stream.device.type == "cpu":
+        return stream_walk_plain(stream, rays, act, block_rays, algo, any_hit)
+    name = _build.ILV_PR5_ENTRY_POINTS[int(bool(any_hit))]
+    return _launch(name, stream, rays, act, block_rays, width)
+
+
+def _launch(name, stream, rays, act, block_rays, arg):
+    """Launch entry point ``name`` on CUDA tensors (checked by ``_check``),
+    or raise."""
+    device = stream.device
     if device.type != "cuda":
         raise ValueError(f"stream_walk runs on cpu or cuda, not {device}")
     lib = _build.library()
@@ -147,9 +172,9 @@ def stream_walk(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
         raise ValueError(f"block_rays={block_rays} must be 1, 2 or 4 times {threads}")
     if device.index is not None and device.index != torch.cuda.current_device():
         raise ValueError(f"{device} is not the current CUDA device")
-    for name, x in (("stream", stream), ("rays", rays), ("act", act)):
+    for label, x in (("stream", stream), ("rays", rays), ("act", act)):
         if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if stream.data_ptr() % 16:
         raise ValueError("stream must be 16-byte aligned (rows are read as float4)")
     n = rays.shape[1]
@@ -158,7 +183,6 @@ def stream_walk(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
     u = torch.empty(n, dtype=torch.float32, device=device)
     v = torch.empty(n, dtype=torch.float32, device=device)
     visits = torch.empty(n // block_rays, 3, dtype=torch.int32, device=device)
-    name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"
     cuda_stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, name)(
         stream.data_ptr(), stream.shape[0], rays.data_ptr(), act.data_ptr(), n,

@@ -382,6 +382,72 @@ def test_schedule_matches_plain_bit_exact(indoor, cuda, algo, any_hit, block):
             assert torch.equal(g, w)
 
 
+# skip2 / ilvN (stream_walk_ilv.cu): every N, from one packet to a full
+# 512x512 wave; every packet size in test_ilv_packet_sizes_match_plain.
+ILV_ALGOS = ["skip2", "ilv1", "ilv2", "ilv3", "ilv4"]
+
+
+def _ilv_rays(cuda, packets, live, any_hit, block=2048, seed=6):
+    """packets x block random rays (``_rays``' origins and directions) with
+    ``live`` of them active; with two packets or more the second is all
+    dead, and the last 300 lanes are pad rays.  (rays, act) packed."""
+    n = packets * block - (300 if packets > 1 else 0)
+    o, d, _ = _rays(max(n, 4096), seed=seed, device=cuda)
+    rng = np.random.default_rng(seed)
+    act = torch.from_numpy(rng.random(n) < live).to(cuda)
+    if packets > 1:
+        act[block:2 * block] = False
+    tmax = torch.full((n,), 6.0 if any_hit else 1e30, device=cuda)
+    return stream.pack_rays(o[:n], bits.nudge(d[:n]), tmax, act, block)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("live", [0.01, 0.4, 1.0])
+@pytest.mark.parametrize("packets", [1, 2, 4, 128])
+def test_ilv_kernel_matches_plain_and_skip(indoor, cuda, packets, live, any_hit):
+    """stream_walk_ilv_{closest,any} for skip2 and every ilvN, and the
+    first design (_pr5), bit for bit with equal counts against the plain
+    version and the skip kernel; one launch a call."""
+    rays, a = _ilv_rays(cuda, packets, live, any_hit)
+    base = (indoor.stream.stream, rays, a, 2048)
+    want = stream_walk.stream_walk_plain(*base, "skip", any_hit)
+    skip = stream_walk.stream_walk(*base, "skip", any_hit)
+    for g, w in zip(skip, want):
+        assert torch.equal(g, w)
+    mode = "any" if any_hit else "closest"
+    for algo in ILV_ALGOS:
+        stream_walk.reset_launches()
+        got = stream_walk.stream_walk(*base, algo, any_hit)
+        old = stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit)
+        torch.cuda.synchronize()
+        assert stream_walk.LAUNCHES[f"stream_walk_ilv_{mode}"] == 1
+        assert stream_walk.LAUNCHES[f"stream_walk_ilv_{mode}_pr5"] == 1
+        assert sum(stream_walk.LAUNCHES.values()) == 2
+        for g, o, w in zip(got, old, want):
+            assert torch.equal(g, w) and torch.equal(o, w)
+    visits = want[4]
+    assert visits.shape == (packets, 3)
+    if packets > 1:
+        assert visits[1].tolist() == [0, 0, 0] and (want[1][2048:4096] == -1).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("block", [512, 1024, 2048])
+def test_ilv_packet_sizes_match_plain(indoor, cuda, block, any_hit):
+    """stream_walk_ilv_{closest,any} at every packet size the wrapper takes
+    (8 blocks of 64, 128 or 256 threads a packet) against the plain
+    version on 4 packets, 40% active; one launch a call."""
+    rays, a = _ilv_rays(cuda, 4, 0.4, any_hit, block=block)
+    base = (indoor.stream.stream, rays, a, block)
+    want = stream_walk.stream_walk_plain(*base, "skip2", any_hit)
+    stream_walk.reset_launches()
+    got = stream_walk.stream_walk(*base, "skip2", any_hit)
+    torch.cuda.synchronize()
+    assert stream_walk.LAUNCHES[f"stream_walk_ilv_{'any' if any_hit else 'closest'}"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("variant", dep_chain.VARIANTS)
 def test_dep_chain_matches_plain(cuda, variant):
     """The microbenchmark's kernel against its plain version at 512 rows,
