@@ -94,17 +94,24 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      to the skip kernel's output, specN / specbN's records equal to its
      but at coincident-t ties (any-hit: the same rays hit).  Prints ms per
      call, the bound (the tests the rows on the path need), visits per
-     packet and the rows tested over the rows on the path; skip2 / ilvN's
-     kernel timed in turns with their first design (stream_walk_ilv_pr5,
-     bit-identical too) and the skip kernel, with the live share;
+     packet and the rows tested over the rows on the path; each kernel
+     timed in turns with its first design (stream_walk_ilv_pr5,
+     stream_walk_spec_pr5; bit-identical too) and the skip kernel, with the
+     live share;
   3g. ilv frame: the inputs of every stream-walk call of an untimed
      512x512 1-spp ilv2 bench frame (32 waves, closest and any), captured
-     by a spy: the new ilv kernel bit-identical to the skip kernel, the
-     first design and the plain version, timed in turns with the first
-     design and the skip kernel, with width, live share and the bound per
-     wave and the sums per spp; the SASS instructions a slab test and a
-     triangle test of the skip kernel, the first ilv design and the new
-     one, and their ptxas registers;
+     by a spy once for 3g and 3h: the new ilv kernel bit-identical to the
+     skip kernel, the first design and the plain version, timed in turns
+     with the first design and the skip kernel, with width, live share and
+     the bound per wave and the sums per spp; the SASS instructions a slab
+     test and a triangle test of the skip kernel, the first ilv design and
+     the new one, and their ptxas registers;
+  3h. spec frame: the same calls through spec4 and specb8: the new spec
+     kernel bit-identical to its first design (visits included) on every
+     call and to the plain version on SPEC_PLAIN_WAVES, timed in turns with
+     the first design and the ilv kernel, bounded by 3g's tests (the skip
+     path's; the spec path's own where the plain version runs), the sums
+     per spp, and the SASS counts and ptxas registers of both spec designs;
   4f. schedule benches: one 512x512 @ 16 spp frame through each of
      SCHEDULE_BENCH at phase 4's seeds, held to phase 4's bitsru8 image by
      phase 4d's gates: frame time, rays/s, energy, launches, peak memory;
@@ -268,6 +275,10 @@ SCHEDULES = ("skip2", "ilv2", "ilv4", "spec2", "spec4", "specb4", "specb8")
 SCHEDULE_BENCH = ("skip2", "ilv4", "spec4", "specb8")
 SCHEDULE_PARITY = ("skip2", "ilv2", "spec2", "specb4")
 SCHEDULE_OF = {"ilv": "ilv4", "spec": "spec4", "specb": "specb8"}
+# Phase 3h: the waves of the ilv2 frame that the plain spec walks run on
+# (1.4-1.8 s a call): the first two, full width, and the first and last
+# of the narrow tail.
+SPEC_PLAIN_WAVES = (0, 1, 16, 31)
 # Phase 6: one plane-form record test, counted from dep_micro.cu: den 5,
 # num 6, the division 1, the hit point 6, u 6, v 6, then |den| and 7
 # compares (u + v's add among them).
@@ -1252,8 +1263,6 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
         base = (tr.stream, rays, a, BLOCK)
         g = a.shape[0] // BLOCK
         skip = stream_walk.stream_walk(*base, "skip", any_hit, tr.max_depth)
-        skip_k_ms = _time_ms(lambda: stream_walk.stream_walk(*base, "skip", any_hit,
-                                                             tr.max_depth), 10, dev)
         skip_work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
         skip_plain, skip_ms = _time_once(lambda: stream_walk.stream_walk_plain(
             *base, "skip", any_hit, tr.max_depth, work=skip_work), dev)
@@ -1269,21 +1278,20 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
                 work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
                 want, p_ms = _time_once(
                     lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
-            turns = ""
-            if walk == "ilv":  # the new design, the first and the skip kernel in turns
-                old = stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit)
-                if not all(torch.equal(x, y) for x, y in zip(old, want)):
-                    raise AssertionError(f"{algo} {label}: the first design differs from the "
-                                         f"plain version")
-                t = _in_turns({"pr5": lambda: stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit),
-                               "new": lambda: stream_walk.stream_walk(*args),
-                               "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
-                              10, dev)
-                k_ms = t["new"]
-                turns = (f"; in turns: first design {t['pr5']:.3f} ms ({t['pr5'] / k_ms:.2f}x), "
-                         f"skip kernel {t['skip']:.3f} ms; live {float(a.float().mean()):.1%}")
-            else:
-                k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
+            # the new design, the first and the skip kernel in turns
+            first = stream_walk.stream_walk_ilv_pr5 if walk == "ilv" else \
+                stream_walk.stream_walk_spec_pr5
+            old = first(*base, algo, any_hit)
+            if not all(torch.equal(x, y) for x, y in zip(old, want)):
+                raise AssertionError(f"{algo} {label}: the first design differs from the "
+                                     f"plain version")
+            t = _in_turns({"pr5": lambda: first(*base, algo, any_hit),
+                           "new": lambda: stream_walk.stream_walk(*args),
+                           "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
+                          10, dev)
+            k_ms = t["new"]
+            turns = (f"; in turns: first design {t['pr5']:.3f} ms ({t['pr5'] / k_ms:.2f}x), "
+                     f"skip kernel {t['skip']:.3f} ms; live {float(a.float().mean()):.1%}")
             if not all(torch.equal(x, y) for x, y in zip(got, want)):
                 raise AssertionError(f"{algo} {label}: kernel differs from its plain version")
             if walk == "ilv":
@@ -1301,7 +1309,7 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
                                         _nbytes(tr.stream, rays, a, *got))
             say(f"[3f schedules] {algo} {label}: bit-identical, counts equal, "
                 f"{'equal to skip' if walk == 'ilv' else 'skip hits kept'}; kernel "
-                f"{k_ms:.3f} ms (skip kernel {skip_k_ms:.3f} ms), plain {p_ms:.3f} ms, bound "
+                f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}; live tests: {work[0]} slab, {work[1]} "
                 f"triangle); visits per packet mean {float(v[:, 0].float().mean()):.1f} max "
                 f"{int(v[:, 0].max())}; rows tested / on the path "
@@ -1342,44 +1350,51 @@ def _walk_waves(scene, dev, w, h, algo):
     return waves
 
 
-def _walk_sass(say) -> None:
-    """SASS instructions a slab test and a triangle test of the skip
-    kernel, the first ilv design and the new one (found by entry name),
-    with their ptxas registers.  The step loop is the kernel's largest
-    loop; its slab tests are its FMNMX over 10 (a
-    slab test's NaN-propagating min/max), its triangle tests the MUFU.RCP
-    outside the slab tests' span (one IEEE division a test; the first
-    design's node rows also divide 1/d, inside that span); a test's count
-    is its kind's span, first to last such instruction, over its tests.  A
-    static count: the division's rare path counts once."""
+def _walk_sass(say, entries, label: str) -> None:
+    """SASS instructions a slab test and a triangle test of the walk
+    kernels of ``entries`` (found by entry name), with their ptxas
+    registers and spills.  The step loop is the kernel's largest loop that
+    holds tests and no other loop that does (stream_walk_spec.cu: the one
+    without shuffles, the one-lane path's); its slab tests are its FMNMX
+    over 10 (a slab test's NaN-propagating min/max), its triangle tests the
+    MUFU.RCP outside the slab tests' span (one IEEE division a test; the
+    first ilv design's node rows also divide 1/d, inside that span); a
+    test's count is its kind's span, first to last such instruction, over
+    its tests.  A static count: the division's rare path counts once."""
     regs = {}
     log = _build.build().with_suffix(".log")
     for ln in _ptxas_summary(log.read_text()) if log.exists() else []:
         name, rest = ln.split(": ", 1)
         regs[name] = rest
-    for entry in _build.WALK_KERNELS:
-        ops = max(_visit.loop_bodies(entry), key=lambda x: len(x[2]))[2]
+    for entry in entries:
+        tests = [x for x in _visit.loop_bodies(entry) if any(o.startswith("FMNMX") for o in x[2])]
+        inner = [x for x in tests if not any(y is not x and x[0] <= y[0] and y[1] <= x[1]
+                                             for y in tests)]
+        plain = [x for x in inner if not any(o.startswith("SHFL") for o in x[2])] or inner
+        ops = max(plain, key=lambda x: len(x[2]))[2]
         mnmx = [i for i, op in enumerate(ops) if op.startswith("FMNMX")]
         rcp = [i for i, op in enumerate(ops) if op.startswith("MUFU.RCP")
                and not (mnmx and mnmx[0] <= i <= mnmx[-1])]
         slab = (mnmx[-1] - mnmx[0] + 1) / (len(mnmx) / 10) if mnmx else float("nan")
         tri = (rcp[-1] - rcp[0] + 1) / len(rcp) if rcp else float("nan")
         overlap = bool(mnmx and rcp) and rcp[0] < mnmx[-1] and mnmx[0] < rcp[-1]
-        say(f"[3g ilv frame] SASS {entry}: step loop {len(ops)} instructions, "
+        say(f"[{label}] SASS {entry}: step loop {len(ops)} instructions, "
             f"{len(mnmx) / 10:g} slab tests ({slab:.1f} a test), {len(rcp)} triangle tests "
             f"({tri:.1f} a test){'; spans interleave' if overlap else ''}; ptxas "
             f"{regs.get(_visit.kernel_name(entry), 'not found')}")
 
 
-def phase_ilv_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 5) -> None:
-    """Every stream-walk call of an untimed w x h 1-spp ilv2 bench frame:
-    the new design (stream_walk_ilv_{closest,any}) bit-identical to the
-    skip kernel, the first design and the plain version; timed in turns
-    with the first design and the skip kernel; bounded by the plain
-    version's tests of live rays.  Then the SASS counts."""
-    scene = compile_scene(builtin.make_indoor_scene(), dev)
+def phase_ilv_frame(dev: torch.device, waves, reps: int = 5) -> list:
+    """Every stream-walk call of an untimed 1-spp ilv2 bench frame
+    (``waves``, from ``_walk_waves``): the new design
+    (stream_walk_ilv_{closest,any}) bit-identical to the skip kernel, the
+    first design and the plain version; timed in turns with the first
+    design and the skip kernel; bounded by the plain version's tests of
+    live rays.  Then the SASS counts.  Returns each call's [slab, triangle]
+    tests (the skip walk's function)."""
     total = {"new": 0.0, "pr5": 0.0, "skip": 0.0, "bound": 0.0}
-    for wave, kind, args in _walk_waves(scene, dev, w, h, "ilv2"):
+    works = []
+    for wave, kind, args in waves:
         stream_t, rays, a, blk, algo, any_hit, depth = args
         base = (stream_t, rays, a, blk)
         g = a.shape[0] // blk
@@ -1396,6 +1411,7 @@ def phase_ilv_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 5) ->
                        "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
                       reps, dev)
         work = work.sum(0).tolist()
+        works.append(work)
         bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS,
                                     _nbytes(stream_t, rays, a, *got))
         for k in ("new", "pr5", "skip"):
@@ -1407,11 +1423,66 @@ def phase_ilv_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 5) ->
             f"({t['pr5'] / t['new']:.2f}x), skip kernel {t['skip']:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}), plain {p_ms:.1f} ms, visits mean "
             f"{float(v.mean()):.1f} max {int(v.max())}")
-    say(f"[3g ilv frame] one {w}x{h} spp's walk calls: new {total['new']:.3f} ms, first "
+    say(f"[3g ilv frame] one spp's {len(waves)} walk calls: new {total['new']:.3f} ms, first "
         f"design {total['pr5']:.3f} ms, skip kernel {total['skip']:.3f} ms, bound "
         f"{total['bound']:.3f} ms")
     if dev.type == "cuda":
-        _walk_sass(say)
+        _walk_sass(say, [k for k in _build.WALK_KERNELS if "_spec" not in k], "3g ilv frame")
+    return works
+
+
+def phase_spec_frame(dev: torch.device, waves, works, reps: int = 3) -> None:
+    """The same calls (3g's ``waves``) through spec4 and specb8: the new
+    design (stream_walk_spec{,b}_{closest,any}) bit-identical to the first
+    design, visits included, and, on SPEC_PLAIN_WAVES, to the plain
+    version; timed in turns with the first design and the ilv kernel (the
+    frame's own algo).  The bound is 3g's: the tests of live rays along
+    the skip walk's path (``works``), since the plain spec walk, at 1.4-1.8
+    s a call, runs on SPEC_PLAIN_WAVES only; there its own tally is printed
+    beside it.  Then the SASS counts of both spec designs."""
+    for algo in ("spec4", "specb8"):
+        total = {"new": 0.0, "pr5": 0.0, "ilv": 0.0, "bound": 0.0}
+        for (wave, kind, args), work in zip(waves, works):
+            stream_t, rays, a, blk, frame_algo, any_hit, depth = args
+            base = (stream_t, rays, a, blk)
+            g = a.shape[0] // blk
+            got = stream_walk.stream_walk(*base, algo, any_hit, depth)
+            old = stream_walk.stream_walk_spec_pr5(*base, algo, any_hit)
+            if not _bits_same(got, old):
+                raise AssertionError(f"{algo} wave {wave} {kind}: the spec designs disagree")
+            plain = ""
+            if wave in SPEC_PLAIN_WAVES:
+                own = torch.zeros(g, 2, dtype=torch.int64, device=dev)
+                want, p_ms = _time_once(lambda: stream_walk.stream_walk_plain(
+                    *base, algo, any_hit, depth, work=own), dev)
+                if not _bits_same(got, want):
+                    raise AssertionError(f"{algo} wave {wave} {kind}: the kernel differs from "
+                                         f"the plain version")
+                own = own.sum(0).tolist()
+                own_ms, _ = _bound(own[0] * SLAB_FLOPS + own[1] * MT_FLOPS,
+                                   _nbytes(stream_t, rays, a, *got))
+                plain = (f", plain {p_ms:.1f} ms (bit-identical), the spec path's own bound "
+                         f"{own_ms:.4f} ms")
+            t = _in_turns({"pr5": lambda: stream_walk.stream_walk_spec_pr5(*base, algo, any_hit),
+                           "new": lambda: stream_walk.stream_walk(*base, algo, any_hit),
+                           "ilv": lambda: stream_walk.stream_walk(*args)}, reps, dev)
+            bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS,
+                                        _nbytes(stream_t, rays, a, *got))
+            for k in ("new", "pr5", "ilv"):
+                total[k] += t[k]
+            total["bound"] += bound_ms
+            v = got[4].float()
+            say(f"[3h spec frame] {algo} wave {wave:2d} {kind:7s} width {a.shape[0]:6d}, live "
+                f"{float(a.float().mean()):6.1%}, bit-identical to the first design, new "
+                f"{t['new']:.4f} ms, first design {t['pr5']:.4f} ms ({t['pr5'] / t['new']:.2f}x), "
+                f"ilv kernel {t['ilv']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); visits "
+                f"mean {float(v[:, 0].mean()):.1f} rows, {float(v[:, 2].mean()):.1f} "
+                f"windows{plain}")
+        say(f"[3h spec frame] {algo}: one spp's {len(waves)} walk calls: new "
+            f"{total['new']:.3f} ms, first design {total['pr5']:.3f} ms, ilv kernel "
+            f"{total['ilv']:.3f} ms, bound {total['bound']:.3f} ms")
+    if dev.type == "cuda":
+        _walk_sass(say, [k for k in _build.WALK_KERNELS if "_spec" in k], "3h spec frame")
 
 
 def phase_schedule_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
@@ -1897,7 +1968,10 @@ def main() -> int:
     plain_imgs = timed("5c parity", phase_walk_parity, dev)
     timed("5e parity", phase_bits_parity, dev)
     kernels.update(timed("3f schedules", phase_schedule_kernel, dev))
-    timed("3g ilv frame", phase_ilv_frame, dev)
+    waves = timed("3g capture", _walk_waves, compile_scene(builtin.make_indoor_scene(), dev),
+                  dev, W, H, "ilv2")
+    works = timed("3g ilv frame", phase_ilv_frame, dev, waves)
+    timed("3h spec frame", phase_spec_frame, dev, waves, works)
     launches.update(timed("4f schedules", phase_schedule_bench, dev, bench_img))
     timed("5f parity", phase_schedule_parity, dev, plain_imgs["skip"])
     for label, phase in (("6 micro", phase_micro), ("7 leaf micro", phase_leaf_micro),

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# The C entry points of stream_walk.cu (one kernel template per walk),
+# The C entry points of the walks (stream_walk.cu, stream_walk_ilv.cu,
+# stream_walk_spec.cu: one kernel template per walk),
 # dep_micro.cu, leaf_micro.cu, visit_micro.cu, shape_micro.cu, op_micro.cu
 # and mxu_micro.cu (one per variant); their wrappers count launches under
 # these names.
@@ -36,10 +37,15 @@ WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv
 # skip2 / ilvN's first design (stream_walk.cu): reached only to time it
 # beside stream_walk_ilv_{closest,any} (stream_walk_ilv.cu).
 ILV_PR5_ENTRY_POINTS = ("stream_walk_ilv_closest_pr5", "stream_walk_ilv_any_pr5")
+# specN / specbN's first design (stream_walk.cu): reached only to time it
+# beside stream_walk_spec{,b}_{closest,any} (stream_walk_spec.cu).
+SPEC_PR5_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}_pr5" for a in ("spec", "specb")
+                              for m in ("closest", "any"))
 # The walk kernels with an entry.cuh getter: the skip walk, the first ilv
-# design and stream_walk_ilv.cu's.
+# and spec designs, stream_walk_ilv.cu's and stream_walk_spec.cu's.
 WALK_KERNELS = ("stream_walk_skip_closest", "stream_walk_skip_any", *ILV_PR5_ENTRY_POINTS,
-                "stream_walk_ilv_closest", "stream_walk_ilv_any")
+                "stream_walk_ilv_closest", "stream_walk_ilv_any", *SPEC_PR5_ENTRY_POINTS,
+                *(f"stream_walk_{a}_{m}" for a in ("spec", "specb") for m in ("closest", "any")))
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
                                                      "depb8", "depb8all"))
 GROUP_ENTRY_POINTS = tuple(f"leaf_groups_{v}" for v in ("full", "nodiv", "noext", "halftri"))
@@ -158,7 +164,7 @@ def library() -> ctypes.CDLL:
             # n_rays, block_rays, t, r, u, v, inst, stream
             fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in WALK_ENTRY_POINTS + ILV_PR5_ENTRY_POINTS:
+        for name in WALK_ENTRY_POINTS + ILV_PR5_ENTRY_POINTS + SPEC_PR5_ENTRY_POINTS:
             fn = getattr(lib, name)
             # stream, n_entries, rays, act, n_rays, block_rays, arg (stack
             # depth, ilvN's N or rows per window), t, r, u, v, visits, stream

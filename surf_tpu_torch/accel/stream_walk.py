@@ -34,12 +34,15 @@ never hit); the caller nudges zero direction components, so 1/d is
 finite.
 
 On a CUDA tensor ``stream_walk`` launches the hand-written kernels of
-``csrc/stream_walk.cu`` (``skip2`` and ``ilvN``: ``csrc/stream_walk_ilv.cu``,
-one packet a work item, its lanes spread over a cluster of 8 blocks, one
-ray a thread); on a CPU tensor it runs ``stream_walk_plain``, the plain
-PyTorch version, which walks all packets in lockstep, each with its own
-cursor.  ``stream_walk_ilv_pr5`` launches skip2 / ilvN's first design (N
-packets a block), to time it beside ``stream_walk``; no algo reaches it.
+``csrc/stream_walk.cu`` (``skip2`` and ``ilvN``: ``csrc/stream_walk_ilv.cu``;
+``specN`` and ``specbN``: ``csrc/stream_walk_spec.cu``; both one packet a
+work item, its active rays spread over a cluster of 8 blocks);
+on a CPU tensor it runs ``stream_walk_plain``, the plain PyTorch version,
+which walks all packets in lockstep, each with its own cursor.
+``stream_walk_ilv_pr5`` and ``stream_walk_spec_pr5`` launch the first
+designs of skip2 / ilvN (N packets a block) and of specN / specbN (a
+block a packet), to time them beside ``stream_walk``; no algo reaches
+them.
 
 Inputs (all on one device):
   stream  [E, 128] f32    the stream (node and leaf rows, lanes 9/10 meta)
@@ -72,10 +75,11 @@ STACK_CAP = 64      # the kernel's stack capacity (kMaxStack)
 K_VISITS = 32       # the stack walk's belt (n_entries + K_VISITS); spec's group
 SPECB_VISITS = 8    # specb's group of windows between any-hit checks
 
-# Kernel launches since the last reset, per entry point of stream_walk.cu
-# and stream_walk_ilv.cu (one kernel template per walk of parse_algo, and
-# the first ilv design).
-LAUNCHES = dict.fromkeys((*_build.WALK_ENTRY_POINTS, *_build.ILV_PR5_ENTRY_POINTS), 0)
+# Kernel launches since the last reset, per entry point of stream_walk.cu,
+# stream_walk_ilv.cu and stream_walk_spec.cu (one kernel template per walk
+# of parse_algo, and the first ilv and spec designs).
+LAUNCHES = dict.fromkeys((*_build.WALK_ENTRY_POINTS, *_build.ILV_PR5_ENTRY_POINTS,
+                          *_build.SPEC_PR5_ENTRY_POINTS), 0)
 
 
 def parse_algo(algo: str) -> tuple[str, int]:
@@ -157,6 +161,20 @@ def stream_walk_ilv_pr5(stream: torch.Tensor, rays: torch.Tensor, act: torch.Ten
     if stream.device.type == "cpu":
         return stream_walk_plain(stream, rays, act, block_rays, algo, any_hit)
     name = _build.ILV_PR5_ENTRY_POINTS[int(bool(any_hit))]
+    return _launch(name, stream, rays, act, block_rays, width)
+
+
+def stream_walk_spec_pr5(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
+                         block_rays: int, algo: str = "spec4", any_hit: bool = False):
+    """``stream_walk`` of a specN / specbN algo through the first design's
+    kernel (one 512-thread block a packet); the plain version for CPU
+    tensors."""
+    walk, width = _check(stream, rays, act, block_rays, algo)
+    if walk not in ("spec", "specb"):
+        raise ValueError(f"{algo} is not specN or specbN")
+    if stream.device.type == "cpu":
+        return stream_walk_plain(stream, rays, act, block_rays, algo, any_hit)
+    name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}_pr5"
     return _launch(name, stream, rays, act, block_rays, width)
 
 

@@ -19,10 +19,11 @@
 // resolve the cursor from their N votes after one barrier.
 //
 // Design: one block per packet (ilvN: per N packets), the function the TPU
-// kernel computes.  skip2 / ilvN run stream_walk_ilv.cu's kernel (one
-// packet a work item); their first design, below, stays as the entry points
-// stream_walk_ilv_{closest,any}_pr5, which only the timing in chip_smoke.py
-// and the CUDA tests reach.  kThreads threads hold block_rays / kThreads
+// kernel computes.  skip2 / ilvN run stream_walk_ilv.cu's kernel and specN
+// / specbN stream_walk_spec.cu's (one packet a work item over a cluster);
+// their first designs, below, stay as the entry points
+// stream_walk_{ilv,spec,specb}_{closest,any}_pr5, which only the timing in
+// chip_smoke.py and the CUDA tests reach.  kThreads threads hold block_rays / kThreads
 // rays each (a 2048-ray packet exceeds 1024 threads).  The packet's cursor is the
 // same in every thread: each thread reads the visited row from device
 // memory at the same addresses as float4 loads (a broadcast in L1), tests
@@ -654,14 +655,20 @@ SURF_STREAM_ENTRY(stream_walk_stack_any, kStack, true)
 // skip2 / ilvN's first design (stream_walk_ilv.cu serves the algos).
 SURF_STREAM_ENTRY(stream_walk_ilv_closest_pr5, kIlv, false)
 SURF_STREAM_ENTRY(stream_walk_ilv_any_pr5, kIlv, true)
-SURF_STREAM_ENTRY(stream_walk_spec_closest, kSpec, false)
-SURF_STREAM_ENTRY(stream_walk_spec_any, kSpec, true)
-SURF_STREAM_ENTRY(stream_walk_specb_closest, kSpecb, false)
-SURF_STREAM_ENTRY(stream_walk_specb_any, kSpecb, true)
+// specN / specbN's first design (stream_walk_spec.cu serves the algos).
+SURF_STREAM_ENTRY(stream_walk_spec_closest_pr5, kSpec, false)
+SURF_STREAM_ENTRY(stream_walk_spec_any_pr5, kSpec, true)
+SURF_STREAM_ENTRY(stream_walk_specb_closest_pr5, kSpecb, false)
+SURF_STREAM_ENTRY(stream_walk_specb_any_pr5, kSpecb, true)
 
-// The kernel of the skip walk and of the first ilv design at 2048-ray
-// packets (skip2: two packets a block), for the SASS checks (entry.cuh).
+// The kernel of the skip walk and of the first ilv and spec designs at
+// 2048-ray packets (skip2: two packets a block), for the SASS checks
+// (entry.cuh).
 SURF_KERNEL_OF(stream_walk_skip_closest, stream_walk_skip_kernel<4, false>)
 SURF_KERNEL_OF(stream_walk_skip_any, stream_walk_skip_kernel<4, true>)
 SURF_KERNEL_OF(stream_walk_ilv_closest_pr5, stream_walk_ilv_kernel<2, 4, false>)
 SURF_KERNEL_OF(stream_walk_ilv_any_pr5, stream_walk_ilv_kernel<2, 4, true>)
+SURF_KERNEL_OF(stream_walk_spec_closest_pr5, stream_walk_spec_kernel<4, false, false>)
+SURF_KERNEL_OF(stream_walk_spec_any_pr5, stream_walk_spec_kernel<4, true, false>)
+SURF_KERNEL_OF(stream_walk_specb_closest_pr5, stream_walk_spec_kernel<4, false, true>)
+SURF_KERNEL_OF(stream_walk_specb_any_pr5, stream_walk_spec_kernel<4, true, true>)

@@ -27,9 +27,9 @@
 // 1. One packet a work item.  The grid is packets x kCluster blocks; the
 //    kCluster = 8 blocks of a packet form a thread-block cluster.  A block
 //    whose packet has left the stream exits.
-// 2. Live-ray compaction.  Every block of the cluster reads the packet's
-//    act with one block scan (the same ranks in every block: thread i
-//    reads lanes j * T + i, in j order); the active rays of rank
+// 2. Live-ray compaction (cluster.cuh).  Every block of the cluster reads
+//    the packet's act with one block scan (the same ranks in every block:
+//    thread i reads lanes j * T + i, in j order); the active rays of rank
 //    [s n / 8, (s + 1) n / 8) go to block s, rank q of them to thread q.
 //    A warp that holds no ray skips its tests with a warp-uniform branch
 //    and still takes part in the vote.  The inactive lanes' results
@@ -45,16 +45,13 @@
 //    barrier, which makes them visible.  So no global load lies on the
 //    chain from one cursor to the next, which at a narrow wave's few live
 //    rays is most of a step.
-// 5. The vote.  Each warp ORs its bit (`__any_sync`) into slot step % 3 of
-//    every block of the cluster through distributed shared memory (lane
-//    k < 8 to block k), then one cluster barrier (release / acquire), and
-//    each block reads its own slot: every block sees the same OR and
-//    computes the same cursor.  Thread 0 zeroes slot (step + 1) % 3 of its
-//    own block before the barrier (vote.cuh's three-slot reset): it was
-//    last read at step - 2, before the barrier of step - 1, and is next
-//    written after this step's barrier.  The any-hit stop ("some active ray
-//    still lacks a hit") is the same OR over the cluster.  Only block 0 of
-//    a cluster writes the packet's visits row.
+// 5. The vote (cluster.cuh `cluster_or`).  Each warp ORs its bit
+//    (`__any_sync`) into slot step % 3 of every block of the cluster through
+//    distributed shared memory, then one cluster barrier, and each block
+//    reads its own slot: every block sees the same OR and computes the same
+//    cursor.  The any-hit stop ("some active ray still lacks a hit") is
+//    the same OR over the cluster.  Only block 0 of a cluster writes the
+//    packet's visits row.
 // The shape, 8 blocks a packet and one ray a thread, is fixed by a sweep of
 // 1, 2, 4 or 8 blocks x 1, 2 or 4 rays a thread on 11 waves of an ilv2
 // frame (PERF.md §6, H100 80GB HBM3 at 700.00 W): 8 x 1 was the
@@ -71,11 +68,10 @@
 // visits nothing; an inactive ray returns (t_max, -1, 0, 0).  Build with
 // --fmad=false so the arithmetic rounds as the plain PyTorch version's.
 
-#include <atomic>
-
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "entry.cuh"
 #include "mt.cuh"
 
@@ -83,46 +79,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kLane = 128;                       // floats per stream row
+constexpr int kLane = surf::kLane;               // floats per stream row
 constexpr int kWidth = 8;                        // children (triangles) per row
 constexpr int kCluster = 8;                      // blocks a packet (portable cluster size)
 constexpr int kMaxLanes = 2048;                  // rays per packet at most
 constexpr int kMinLanes = 512;                   // rays per packet at least
 constexpr int kMaxThreads = kMaxLanes / kCluster;  // threads a block at most
 constexpr int kMaxIlv = 4;                       // ilvN: N at most
-constexpr int kMaxDevices = 64;                  // devices whose cluster check is kept
-
-__device__ __forceinline__ const float4* row_at(const float* stream, int p) {
-  return reinterpret_cast<const float4*>(stream) + static_cast<size_t>(p) * (kLane / 4);
-}
-
-// Row q of the stream into shared memory `dst` (512 bytes) with cp.async,
-// 16 bytes a thread for threads [lo, lo + 32) of the block.
-__device__ __forceinline__ void stage_row(float4* dst, const float* stream, int q, int lo) {
-  const int k = static_cast<int>(threadIdx.x) - lo;
-  if (k >= 0 && k < kLane / 4) {
-    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + k));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(to), "l"(row_at(stream, q) + k)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void staged_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// The vote of one step over the cluster (see 5. above).
-__device__ __forceinline__ bool cluster_or(bool vote, unsigned* slot, int step,
-                                           cg::cluster_group cluster) {
-  const int k = step % 3;
-  if (threadIdx.x == 0) slot[(step + 1) % 3] = 0u;
-  const int lid = threadIdx.x & 31;
-  if (__any_sync(0xffffffffu, vote) && lid < kCluster) {
-    atomicOr(cluster.map_shared_rank(slot + k, lid), 1u);
-  }
-  cluster.sync();
-  return *static_cast<volatile unsigned*>(slot + k) != 0u;
-}
 
 // One packet a cluster of kCluster blocks, one ray a thread; blockDim.x =
 // block_rays / kCluster.  At most 64 registers a thread (4 blocks of 256
@@ -145,51 +108,30 @@ stream_walk_ilv_split_kernel(const float* __restrict__ stream, int n_entries,
   const size_t n = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
   const size_t first = static_cast<size_t>(packet) * block_rays;
   const int* a = act + first;
-  const int tid = threadIdx.x, wid = tid >> 5, lid = tid & 31;
+  const int tid = threadIdx.x, wid = tid >> 5;
 
-  stage_row(rows[0][0], stream, 0, 0);  // the first row, read after the barriers below
+  surf::stage_row(rows[0][0], stream, 0, 0);  // the first row, read after the barriers below
 
-  // Compaction: one block scan of the per-thread active counts ranks the
-  // packet's active lanes, alike in every block of the cluster.
-  int mine = 0;
-#pragma unroll
-  for (int j = 0; j < kCluster; ++j) mine += a[j * T + tid] != 0;
-  int incl = mine;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lid >= o) incl += x;
-  }
-  if (lid == 31) warp_live[wid] = incl;
+  // Compaction (cluster.cuh): one block scan of the per-thread active
+  // counts ranks the packet's active lanes, alike in every block.
+  int incl = 0;
+  const int mine = surf::scan_active<kCluster>(a, T, warp_live, incl);
   if (tid == 0) {
     slot[0] = 0u;
     slot[1] = 0u;
     slot[2] = 0u;
   }
-  staged_wait();
+  surf::staged_wait();
   __syncthreads();
-  int before = 0, n_live = 0;
-  for (int w = 0; w < (T >> 5); ++w) {
-    const int c = warp_live[w];
-    before += w < wid ? c : 0;
-    n_live += c;
-  }
-  const int lo = s * n_live / kCluster;
-  const int cnt = (s + 1) * n_live / kCluster - lo;  // this block's rays, at most T
-  int rank = before + incl - mine;
-  for (int j = 0; j < kCluster; ++j) {  // the loads above left these in L1
-    const int lane = j * T + tid;
-    if (a[lane] != 0) {
-      if (rank >= lo && rank < lo + cnt) live_lane[rank - lo] = lane;
-      ++rank;
-    } else if (j == s) {
-      const size_t i = first + lane;
-      t_out[i] = rays[6 * n + i];
-      r_out[i] = -1;
-      u_out[i] = 0.0f;
-      v_out[i] = 0.0f;
-    }
-  }
+  int n_live = 0;
+  const int cnt = surf::split_active<kCluster, kCluster>(
+      a, T, s, warp_live, mine, incl, live_lane, n_live, [&](int lane) {
+        const size_t i = first + lane;
+        t_out[i] = rays[6 * n + i];
+        r_out[i] = -1;
+        u_out[i] = 0.0f;
+        v_out[i] = 0.0f;
+      });  // this block's rays, at most T
   __syncthreads();
 
   // This thread's ray: rank tid of the block's.  Every thread of a warp
@@ -215,9 +157,9 @@ stream_walk_ilv_split_kernel(const float* __restrict__ stream, int n_entries,
     // The rows the cursor can take next, staged while this one is tested:
     // rows[step & 1 ^ 1] was last read before the previous step's barrier,
     // and this step's barrier makes the copies visible.
-    if (p + 1 < n_entries) stage_row(rows[(step & 1) ^ 1][0], stream, p + 1, 0);
+    if (p + 1 < n_entries) surf::stage_row(rows[(step & 1) ^ 1][0], stream, p + 1, 0);
     if (!is_leaf && skip > p + 1 && skip < n_entries) {
-      stage_row(rows[(step & 1) ^ 1][1], stream, skip, 32);
+      surf::stage_row(rows[(step & 1) ^ 1][1], stream, skip, 32);
     }
     bool vote = false;
     if (warp_on) {
@@ -252,11 +194,13 @@ stream_walk_ilv_split_kernel(const float* __restrict__ stream, int n_entries,
         }
       }
     }
-    staged_wait();
+    surf::staged_wait();
     // A node row: does some live ray hit some child?  A leaf row (any-hit):
     // does some active ray still lack a hit?  (At a node row that is true:
     // no hit changed since the last leaf row's vote, or since the start.)
-    const bool any = cluster_or(vote, slot, step, cluster);
+    const bool any =
+        surf::cluster_or<kCluster>(__any_sync(0xffffffffu, vote) ? 1u : 0u, slot, step,
+                                   cluster) != 0u;
     int next = (is_leaf || any) ? p + 1 : skip;
     next = max(next, p + 1);
     if (kAny && is_leaf && !any) next = n_entries;
@@ -279,51 +223,6 @@ stream_walk_ilv_split_kernel(const float* __restrict__ stream, int n_entries,
   }
 }
 
-// The launch of `blocks` blocks of `threads` threads in clusters of
-// kCluster on stream cs; attr is the cluster attribute it points at.
-cudaLaunchConfig_t cluster_config(int blocks, int threads, cudaStream_t cs,
-                                  cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kCluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = cs;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// 0 if a cluster of kCluster blocks of kMaxThreads threads of the kernel
-// fits the current device (cudaOccupancyMaxActiveClusters), else a CUDA
-// error code; a smaller block needs no more of any resource.  Asked once a
-// device: `fits` holds 1 + the answer, 0 before the first ask, and two
-// threads that ask at once store the same answer.
-template <bool kAny>
-int check_cluster() {
-  static std::atomic<int> fits[kMaxDevices];
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (device < kMaxDevices) {
-    const int known = fits[device].load(std::memory_order_relaxed);
-    if (known != 0) return known - 1;
-  }
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(kCluster, kMaxThreads, nullptr, &attr);
-  int active = 0;
-  e = cudaOccupancyMaxActiveClusters(
-      &active, reinterpret_cast<const void*>(stream_walk_ilv_split_kernel<kAny>), &cfg);
-  const int err = e != cudaSuccess ? static_cast<int>(e)
-                  : active < 1     ? static_cast<int>(cudaErrorInvalidConfiguration)
-                                   : 0;
-  if (device < kMaxDevices) fits[device].store(err + 1, std::memory_order_relaxed);
-  return err;
-}
-
 template <bool kAny>
 int launch(const float* stream, int n_entries, const float* rays, const int* act, int n_rays,
            int block_rays, int arg, float* t, int* r, float* u, float* v, int* visits,
@@ -332,12 +231,16 @@ int launch(const float* stream, int n_entries, const float* rays, const int* act
       block_rays % (kCluster * 32) != 0 || n_rays <= 0 || n_rays % block_rays != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int err = check_cluster<kAny>();
+  // Whether a cluster of kCluster blocks of kMaxThreads threads fits the
+  // device, asked once a device (cluster.cuh).
+  static std::atomic<int> fits[surf::kMaxDevices];
+  auto* kernel = stream_walk_ilv_split_kernel<kAny>;
+  const int err =
+      surf::check_cluster(reinterpret_cast<const void*>(kernel), kCluster, kMaxThreads, fits);
   if (err != 0) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(n_rays / block_rays * kCluster, block_rays / kCluster, cs, &attr);
-  auto* kernel = stream_walk_ilv_split_kernel<kAny>;
+  const cudaLaunchConfig_t cfg = surf::cluster_config(n_rays / block_rays * kCluster,
+                                                      block_rays / kCluster, kCluster, cs, &attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, stream, n_entries, rays, act, n_rays,
                                            block_rays, t, r, u, v, visits);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,7 +1,8 @@
 """The hand-written kernels (leaf rows with every entry point, instanced leaf
-rows, the stream walks with the TPU schedules, the binary walk, the
-dependent-cursor, leaf-row, walk-visit, visit-shape, matrix-unit and
-op-cost microbenchmarks) against their plain PyTorch versions, on the card.
+rows, the stream walks with the TPU schedules and the first designs of
+ilvN and specN / specbN, the binary walk, the dependent-cursor, leaf-row,
+walk-visit, visit-shape, matrix-unit and op-cost microbenchmarks) against
+their plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
 no JAX, so they run on a machine without it:
 
@@ -34,6 +35,7 @@ from surf_tpu_torch.scene.compile import compile_scene
 from surf_tpu_torch.wavefront.integrator import (RenderConfig, initial_seeds,
                                                  render_frame_seeded)
 
+import test_torch_spec_split as spec_split
 from leaf_split_data import adversarial
 
 pytestmark = pytest.mark.cuda
@@ -446,6 +448,97 @@ def test_ilv_packet_sizes_match_plain(indoor, cuda, block, any_hit):
     assert stream_walk.LAUNCHES[f"stream_walk_ilv_{'any' if any_hit else 'closest'}"] == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# specN / specbN (stream_walk_spec.cu): every N at 4 packets, spec4 and
+# specb8 from one packet to a full 512x512 wave; the data of
+# tests/test_torch_spec_split.py (the emulation of the kernel's
+# decomposition) for the ends of a group.
+SPEC_ALGOS = ["spec1", "spec2", "spec4", "spec8", "specb1", "specb2", "specb4", "specb8"]
+
+
+def _spec_matches(stream_t, rays, a, block, algo, any_hit):
+    """stream_walk_spec{,b}_* and the first design (_pr5) against the plain
+    version, bit for bit with equal counts, one launch each; returns the
+    plain result."""
+    walk, _ = stream_walk.parse_algo(algo)
+    mode = "any" if any_hit else "closest"
+    base = (stream_t, rays, a, block)
+    want = stream_walk.stream_walk_plain(*base, algo, any_hit)
+    stream_walk.reset_launches()
+    got = stream_walk.stream_walk(*base, algo, any_hit)
+    old = stream_walk.stream_walk_spec_pr5(*base, algo, any_hit)
+    torch.cuda.synchronize()
+    assert stream_walk.LAUNCHES[f"stream_walk_{walk}_{mode}"] == 1
+    assert stream_walk.LAUNCHES[f"stream_walk_{walk}_{mode}_pr5"] == 1
+    assert sum(stream_walk.LAUNCHES.values()) == 2
+    for g, o, w in zip(got, old, want):
+        assert torch.equal(g, w) and torch.equal(o, w)
+    return want
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("live", [0.01, 0.4, 1.0])
+@pytest.mark.parametrize("packets", [1, 2, 4, 128])
+def test_spec_kernel_matches_plain_and_pr5(indoor, cuda, packets, live, any_hit):
+    """The new spec / specb kernel and the first design against the plain
+    version on the indoor stream, 1-128 packets of 2048 rays, 1-100% live
+    (``_ilv_rays``: the second packet all dead, 300 pad rays)."""
+    rays, a = _ilv_rays(cuda, packets, live, any_hit)
+    for algo in SPEC_ALGOS if packets == 4 else ["spec4", "specb8"]:
+        want = _spec_matches(indoor.stream.stream, rays, a, 2048, algo, any_hit)
+        assert want[4].shape == (packets, 3)
+        if packets > 1:
+            assert want[4][1].tolist() == [0, 0, 0] and (want[1][2048:4096] == -1).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("block", [512, 1024, 2048])
+def test_spec_packet_sizes_match_plain(indoor, cuda, block, any_hit):
+    """The spec kernel at every packet size the wrapper takes (8 blocks of
+    64, 128 or 256 threads a packet), 4 packets, 40% active."""
+    rays, a = _ilv_rays(cuda, 4, 0.4, any_hit, block=block)
+    for algo in ("spec4", "specb8"):
+        _spec_matches(indoor.stream.stream, rays, a, block, algo, any_hit)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_spec_kernel_ends_of_a_group(cuda, any_hit):
+    """The soup streams of tests/test_torch_spec_split.py in 512-ray
+    packets: a dead-end subtree whose last leaf row only the re-test of
+    the clamped window reaches (its hits must appear), rays that reach
+    specb's rows before the cursor, packets whose rays all hit mid-group
+    (any-hit), every live share, and a stream of 5 rows with spec8."""
+    soup = spec_split.soup_stream().to(cuda)
+    cut, _ = spec_split.cut_stream(soup)
+    rays, a = (x.to(cuda) for x in spec_split.tail_packets(cut.cpu()))
+    for algo in ("spec1", "spec8", "specb4", "specb8"):
+        want = _spec_matches(cut, rays, a, 512, algo, any_hit)
+        assert ((want[1] // 8) == cut.shape[0] - 1).any()
+    end = spec_split.soup_stream(seed=4).to(cuda)
+    rays, a = (x.to(cuda) for x in spec_split.tail_packets(end.cpu()))
+    for algo in ("specb4", "specb8"):
+        _spec_matches(end, rays, a, 512, algo, any_hit)
+    rays, a = (x.to(cuda) for x in spec_split.packets(soup.cpu()))
+    for algo in SPEC_ALGOS:
+        _spec_matches(soup, rays, a, 512, algo, any_hit)
+    short = spec_split.soup_stream(n_tris=12, seed=5).to(cuda)
+    rays, a = (x.to(cuda) for x in spec_split.packets(short.cpu(), seed=31))
+    _spec_matches(short, rays, a, 512, "spec8", any_hit)
+
+
+def test_spec_kernel_rejects_bad_inputs(indoor, cuda):
+    """A window wider than 8 rows, specb's window longer than the stream
+    and a packet size the kernel does not take raise, as on the CPU."""
+    rays, a = _ilv_rays(cuda, 1, 1.0, False)
+    short = indoor.stream.stream[:4].contiguous()
+    with pytest.raises(ValueError):
+        stream_walk.stream_walk(indoor.stream.stream, rays, a, 2048, "spec9")
+    with pytest.raises(ValueError):
+        stream_walk.stream_walk(short, rays, a, 2048, "specb8")
+    with pytest.raises(ValueError):
+        stream_walk.stream_walk(indoor.stream.stream, rays[:, :1536].contiguous(),
+                                a[:1536].contiguous(), 1536, "spec4")
 
 
 @pytest.mark.parametrize("variant", dep_chain.VARIANTS)
