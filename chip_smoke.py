@@ -9,9 +9,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      process per source, all started together;
   3. kernel: the leaf-row kernel (leaf_rows_closest, leaf_rows_any: live
      compaction, row splits, the (t, position) merge) and the first
-     design's kernel on the same function (leaf_rows_pr1) against the plain
-     PyTorch version on the card, at the bench's shapes (512x512 = 262,144
-     rays of the indoor scene, 2048-ray packets): primary rays and one
+     design's kernel on the same function (leaf_rows_first_design) against
+     the plain PyTorch version on the card, at the bench's shapes (512x512
+     = 262,144 rays of the indoor scene, 2048-ray packets): primary rays and one
      bounce's rays, closest hit, any-hit trim and the overflow sweep
      (forced with cap_rows=8), with one all-dead packet; then the inputs of
      every leaf-row call of an untimed 512x512 1-spp bench frame (32 waves,
@@ -24,14 +24,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      rays and one bounce's rays, 2048-ray packets, one all-dead packet):
      closest, any-hit (t_max 16 primary, 4 bounce) and per-instance sweeps
      (inst_cap=8), with the same gates;
-  3c. stream walks: the skip and stack walk kernels against their plain
-     versions on the indoor scene's 8-wide stream, primary and one
-     bounce's rays at 512x512, 2048-ray packets, one all-dead packet,
-     closest and any-hit (t_max 8 primary, 4 bounce): t, record, u, v and
-     the per-packet visit counts: the counts must be equal, the hits
-     bit-identical expected (else the gate of phase 3); the bound counts
-     the slab and triangle tests of the live rays (active, and for any-hit
-     without a hit yet) at each row the plain version visits;
+  3c. stream walks: the skip and stack walks against their plain versions
+     on the indoor scene's 8-wide stream, primary and one bounce's rays at
+     512x512, 2048-ray packets, one all-dead packet, closest and any-hit
+     (t_max 8 primary, 4 bounce): t, record, u, v and the per-packet visit
+     counts: the counts must be equal, the hits bit-identical expected
+     (else the gate of phase 3); the bound counts the slab and triangle
+     tests of the live rays (active, and for any-hit without a hit yet) at
+     each row the plain version visits.  algo="skip" runs the ilv kernel
+     (stream_walk_ilv_*, ilv1); the skip kernel (stream_walk_skip_*) is its
+     first design, reached by stream_walk_skip_pr3, held to the same gates
+     and timed in turns with the routed walk (the kernels line's skip rows);
   3d. binary walk: the binary-BVH walk kernel against its plain version on
      the same rays in 1024-ray packets, the same way;
   4. bench: the bench config (bench.py: indoor scene, 512x512 @ 16 spp as
@@ -71,7 +74,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      version on phase 3's six ray sets: bit-identical or the phase fails.
      A carry-in entry point resumes over each list's rows past the first
      CARRY_ROWS from a round-A call of its non-carry twin over those rows
-     (the sweeps all in round A), and must then equal the one-call result;
+     (the sweeps all in round A), and must then equal the one-call result.
+     The bf16 pair (leaf_rows_bf16_live_kernel) is timed in turns with its
+     first design (leaf_rows_first_design with precision="bf16": the _pr4
+     entry points), which must be bit-identical too;
+  3i. bf16 frames: the inputs of every leaf-row call of an untimed 512x512
+     1-spp bitsh frame (64 calls) and bits2h frame (128: round A and the
+     carry-in round B), captured by a spy: the new bf16 kernel
+     bit-identical to the plain version and to its first design, the two
+     timed in turns, with each call's width, live share and bound and the
+     sums a spp; then the SASS of the step loop of both designs (by entry
+     name): instructions, packed bf16 instructions and F2F conversions a
+     record test, and ptxas registers and spills;
   4e. bits benches: one 512x512 @ 8 spp frame at phase 4's seeds through
      each algo of BITS_ALGOS (frame time, rays/s, energy, launches per
      entry point, peak memory): those of EXACT_ALGOS within 0.1% of
@@ -91,8 +105,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      sets and on an any-hit set of 512x512 rays from inside the indoor
      room, every one of which hits: t, record, u, v bit-identical and the
      per-packet counts equal, or the phase fails; skip2 / ilvN also equal
-     to the skip kernel's output, specN / specbN's records equal to its
-     but at coincident-t ties (any-hit: the same rays hit).  Prints ms per
+     to the skip kernel's output (stream_walk_skip_pr3), specN / specbN's
+     records equal to its but at coincident-t ties (any-hit: the same rays
+     hit).  Prints ms per
      call, the bound (the tests the rows on the path need), visits per
      packet and the rows tested over the rows on the path; each kernel
      timed in turns with its first design (stream_walk_ilv_pr5,
@@ -239,11 +254,25 @@ SLAB_FLOPS = 25    # one ray x box slab test (6 sub, 6 mul, 10 min/max, 3 compar
 # The walks of phases 3c-5c, as RenderConfig fields.
 WALKS = {"skip": dict(algo="skip"), "stack": dict(algo="stack"),
          "binary": dict(use_wide=False)}
+# The entry points each walk's frame must launch (skip: the ilv kernel).
+WALK_LAUNCHES = {"skip": ("stream_walk_ilv_closest", "stream_walk_ilv_any"),
+                 "stack": ("stream_walk_stack_closest", "stream_walk_stack_any"),
+                 "binary": ("bvh_walk_closest", "bvh_walk_any")}
 XF_FLOPS = 33      # one ray into one instance's object space (origin + dir)
 # Phase 3e: the entry points beyond phase 3's pair, and round A's rows
 # before a carry-in call (bits2's default refine_rows).
 VARIANTS = [k for k in leaf_rows.ENTRY_POINTS if k not in ("leaf_rows_closest", "leaf_rows_any")]
 CARRY_ROWS = bits.BITS_REFINE_ROWS
+# The first designs, kept as yardsticks that no algo reaches: the f32
+# pair's (phase 3), the bf16 pair's (3e, 3i; leaf_rows.leaf_rows_first_design)
+# and the skip walk's (3c, 3f, 3g; stream_walk.stream_walk_skip_pr3, whose
+# launches count under the entry points stream_walk_skip_*).
+F32_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.LIVE_ENTRY_POINTS)
+BF16_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.BF16_ENTRY_POINTS)
+SKIP_FIRST = ("stream_walk_skip_closest", "stream_walk_skip_any")
+# Phase 3i: the bf16 frames replayed, and the 1 spp frame's leaf-row calls
+# each (32 waves, closest and shadow; bits2h rounds A and B).
+BF16_FRAMES = {"bitsh": 64, "bits2h": 128}
 # Phase 4e: the bits algos timed at full depth, those whose image is
 # expected bit-equal to bitsru8's up to exact-t ties, and the 1 spp frames
 # that drive the remaining carry-in entry points.  Phase 5e: kernel vs plain.
@@ -521,7 +550,7 @@ def _in_turns(fns: dict, reps: int, dev: torch.device) -> dict:
 
 def _new_vs_pr1(args, reps: int, dev: torch.device):
     """(new ms, first design's ms) of one leaf-row call, timed in turns."""
-    ms = _in_turns({"pr1": lambda: leaf_rows.leaf_rows_pr1(*args),
+    ms = _in_turns({"pr1": lambda: leaf_rows.leaf_rows_first_design(*args),
                     "new": lambda: leaf_rows.leaf_rows(*args)}, reps, dev)
     return ms["new"], ms["pr1"]
 
@@ -553,20 +582,34 @@ def _bench_waves(scene, dev, w, h):
     return waves
 
 
-def _leaf_sass(say) -> dict:
-    """SASS instructions a record test of the two designs' kernels and
-    their ptxas registers, found by entry name: the smallest loop that
-    holds a row's 8 record tests (8 or more MUFU.RCP, one reciprocal a
-    test; the row loop, unrolled over them), less the loops nested in it
-    (the live kernel's exact redo of a row), over 8.  A static count: the
-    branches around the division's and the redo's rare paths count once."""
+def _ptxas_regs() -> dict:
+    """{device kernel name: its ptxas registers and spills} of the build."""
     regs = {}
     log = _build.build().with_suffix(".log")
     for ln in _ptxas_summary(log.read_text()) if log.exists() else []:
         name, rest = ln.split(": ", 1)
         regs[name] = rest
+    return regs
+
+
+def _is_packed_bf16(op: str) -> bool:
+    """A packed bf16x2 arithmetic instruction (HADD2/HMUL2/HFMA2 .BF16*)."""
+    first, *parts = op.split(".")
+    return first in ("HADD2", "HMUL2", "HFMA2") and any(x.startswith("BF16") for x in parts)
+
+
+def _leaf_sass(say, entries, label: str) -> dict:
+    """SASS instructions a record test of the leaf-row kernels of
+    ``entries`` and their ptxas registers, found by entry name: the
+    smallest loop that holds a row's 8 record tests (8 or more MUFU.RCP,
+    one reciprocal a test; the row loop, unrolled over them), less the
+    loops nested in it (the live kernels' exact redo of a row), over its
+    MUFU.RCP (a test's); of those, the packed bf16 instructions and the
+    F2F conversions.  A static count: the branches around the division's
+    and the redo's rare paths count once."""
+    regs = _ptxas_regs()
     out = {}
-    for entry in leaf_rows.LIVE_ENTRY_POINTS + leaf_rows.PR1_ENTRY_POINTS:
+    for entry in entries:
         loops = _visit.loop_bodies(entry)
         rows = [(lo, hi, ops) for lo, hi, ops in loops if ops.count("MUFU.RCP") >= 8]
         if not rows:
@@ -577,11 +620,15 @@ def _leaf_sass(say) -> dict:
                                              for y in inner)]
         own = Counter(ops) - sum((Counter(o) for _, _, o in outer), Counter())
         n_own = sum(own.values())
+        tests = own["MUFU.RCP"]
         lds = {op: k for op, k in own.items() if op.startswith("LDS")}
-        out[entry] = n_own / 8
-        say(f"[3 kernel] SASS {entry}: {n_own} instructions a row of 8 record tests "
-            f"({len(ops) - n_own} more in {len(outer)} nested loop(s)) = {n_own / 8:.2f} a "
-            f"test, loads {lds}; ptxas {regs.get(_visit.kernel_name(entry), 'not found')}")
+        packed = sum(k for op, k in own.items() if _is_packed_bf16(op))
+        f2f = sum(k for op, k in own.items() if op.startswith("F2F"))
+        out[entry] = n_own / tests
+        say(f"[{label}] SASS {entry}: {n_own} instructions for {tests} record tests "
+            f"({len(ops) - n_own} more in {len(outer)} nested loop(s)) = {n_own / tests:.2f} a "
+            f"test, packed bf16 {packed / tests:.2f} a test, F2F {f2f / tests:.2f} a test, loads "
+            f"{lds}; ptxas {regs.get(_visit.kernel_name(entry), 'not found')}")
     return out
 
 
@@ -598,7 +645,7 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
         rays, lists, n_rows = bits.prepare(scene.trace, o, d, tm, act, BLOCK, cap)
         args = (scene.trace.ltab, lists, n_rows, rays, BLOCK, any_hit)
         got = leaf_rows.leaf_rows(*args)
-        old = leaf_rows.leaf_rows_pr1(*args)
+        old = leaf_rows.leaf_rows_first_design(*args)
         want = leaf_rows.leaf_rows_plain(*args)
         _sync(dev)
         bit, err, _ = _compare(got, want)
@@ -629,7 +676,8 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
     for wave, kind, args in _bench_waves(scene, dev, w, h):
         got = leaf_rows.leaf_rows(*args)
         want, p_ms = _time_once(lambda: leaf_rows.leaf_rows_plain(*args), dev)
-        if not _bits_same(got, want) or not _bits_same(leaf_rows.leaf_rows_pr1(*args), want):
+        if not (_bits_same(got, want)
+                and _bits_same(leaf_rows.leaf_rows_first_design(*args), want)):
             raise AssertionError(f"wave {wave} {kind}: a kernel disagrees with the plain version")
         k_ms, pr1_ms = _new_vs_pr1(args, 10, dev)
         bound_ms, bound_by, tests, live = _leaf_bound(*args[:4])
@@ -645,7 +693,7 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
     say(f"[3 kernel] one {w}x{h} spp's leaf-row calls: kernel {total['new']:.3f} ms, "
         f"first design {total['pr1']:.3f} ms, bound {total['bound']:.3f} ms")
     if dev.type == "cuda":
-        _leaf_sass(say)
+        _leaf_sass(say, leaf_rows.LIVE_ENTRY_POINTS + F32_FIRST, "3 kernel")
     return out
 
 
@@ -739,12 +787,26 @@ def phase_stream_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
             work = torch.zeros(a.shape[0] // BLOCK, 2, dtype=torch.int64, device=dev)
             want, p_ms = _time_once(
                 lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
-            k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
-            visits = want[4].sum(0, dtype=torch.int64).tolist()  # rows, leaf rows
             nbytes = _nbytes(tr.stream, rays, a, *got)
             name = f"stream_walk_{algo}_{'any' if any_hit else 'closest'}"
-            _walk_record(out, name, label, got, want, k_ms, p_ms, work.sum(0).tolist(),
-                         nbytes, "[3c stream]")
+            if algo == "skip":  # the routed walk (the ilv kernel) and the skip kernel in turns
+                if not _bits_same(got, want):
+                    raise AssertionError(f"skip {label}: the routed walk differs from the "
+                                         f"plain version")
+                first = stream_walk.stream_walk_skip_pr3(*args[:4], any_hit)
+                t = _in_turns({"pr3": lambda: stream_walk.stream_walk_skip_pr3(*args[:4],
+                                                                               any_hit),
+                               "new": lambda: stream_walk.stream_walk(*args)}, 10, dev)
+                _walk_record(out, name, label, first, want, t["pr3"], p_ms,
+                             work.sum(0).tolist(), nbytes, "[3c stream] first design")
+                say(f"[3c stream] skip {label}: routed (stream_walk_ilv_*) {t['new']:.3f} ms, "
+                    f"bit-identical; the skip kernel (stream_walk_skip_pr3) {t['pr3']:.3f} ms "
+                    f"({t['pr3'] / t['new']:.2f}x)")
+            else:
+                k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
+                _walk_record(out, name, label, got, want, k_ms, p_ms, work.sum(0).tolist(),
+                             nbytes, "[3c stream]")
+            visits = want[4].sum(0, dtype=torch.int64).tolist()  # rows, leaf rows
             g = want[4].shape[0]
             say(f"[3c stream]   visits per packet: mean {visits[0] / g:.1f} rows "
                 f"({visits[1] / g:.1f} leaf), max {int(want[4][:, 0].max())}")
@@ -878,21 +940,24 @@ def phase_walk_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
         _render(scene, cfg, cam, dev, 0, 1)  # warm-up
         _sync(dev)
         counts = bvh_walk.LAUNCHES if walk == "binary" else stream_walk.LAUNCHES
-        mine = {k: 0 for k in counts if walk == "binary" or f"_{walk}_" in k}
         stream_walk.reset_launches()
         bvh_walk.reset_launches()
         t0 = time.perf_counter()
         img = _render(scene, cfg, cam, dev, 2 * spp, spp)
         _sync(dev)
         dt = time.perf_counter() - t0
-        mine = {k: counts[k] for k in mine}
+        mine = {k: counts[k] for k in WALK_LAUNCHES[walk]}
         launches.update(mine)
         energy = _check_image(img, f"{walk} bench", spp)
         for name, k in mine.items():
             if k <= 0 and dev.type == "cuda":
                 raise AssertionError(f"{name} was never launched by the {walk} render")
+        first = ""
+        if walk == "skip":  # the first design is a yardstick: no frame launches it
+            launches.update({k: counts[k] for k in SKIP_FIRST})
+            first = f" (the skip kernel's {dict((k, counts[k]) for k in SKIP_FIRST)})"
         say(f"[4d walks] {walk}: {w}x{h} @ {spp} spp, frame {dt:.3f} s, "
-            f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {mine}; "
+            f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {mine}{first}; "
             f"vs bitsru8: {_pixel_gate(ref_img, img, f'{walk} bench frame')}")
     return launches
 
@@ -1095,7 +1160,21 @@ def phase_variants(dev: torch.device, w: int = W, h: int = H) -> dict:
                 if not all(torch.equal(x, y) for x, y in zip(got, whole)):
                     raise AssertionError(f"{name} {label}: round A + carry-in differs from "
                                          f"one call over the whole lists")
-            k_ms = _time_ms(lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw), 10, dev)
+            turns = ""
+            if name in leaf_rows.BF16_ENTRY_POINTS:  # the new design and the first in turns
+                first = lambda: leaf_rows.leaf_rows_first_design(  # noqa: E731
+                    *args, precision="bf16", carry=carry)
+                if not _bits_same(first(), want):
+                    raise AssertionError(f"{name} {label}: the first design differs from the "
+                                         f"plain version")
+                t = _in_turns({"pr4": first,
+                               "new": lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw)},
+                              10, dev)
+                k_ms = t["new"]
+                turns = (f", first design {t['pr4']:.3f} ms ({t['pr4'] / k_ms:.2f}x), "
+                         f"bit-identical")
+            else:
+                k_ms = _time_ms(lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw), 10, dev)
             rows = torch.where(nr < 0, table.shape[0], nr)
             tests = float((rows * live).sum()) * 8
             f32_ops, bf16_ops = {("bw", "f32"): (BW_FLOPS, 0),
@@ -1105,12 +1184,88 @@ def phase_variants(dev: torch.device, w: int = W, h: int = H) -> dict:
             nbytes = _nbytes(*args[:4]) + 16 * rays.shape[1] * (2 if carry else 1)
             bound_ms, bound_by = _bound(tests * f32_ops, nbytes, tests * bf16_ops)
             resumed = f", resumed after round A's first {k} rows" if carry is not None else ""
-            say(f"[3e variants] {name} {label}: bit-identical, kernel {k_ms:.3f} ms, "
+            say(f"[3e variants] {name} {label}: bit-identical, kernel {k_ms:.3f} ms{turns}, "
                 f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests:.4g} "
                 f"tests{resumed})")
             if label == "bounce/closest":
                 out[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+                if turns:
+                    out[leaf_rows.FIRST_DESIGNS[name]] = dict(
+                        max_abs_err=0.0, ms=t["pr4"], plain_ms=p_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
     return out
+
+
+def _leaf_calls(scene, dev, w, h, algo):
+    """The leaf-row calls of one untimed w x h 1-spp bench frame of
+    ``algo``, in order: (args, kw) as bits.traverse_bits made them,
+    captured by a spy on bits.leaf_rows."""
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS, algo=algo)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    calls = []
+    real = bits.leaf_rows
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    with mock.patch.object(bits, "leaf_rows", spy):
+        _render(scene, cfg, cam, dev, 0, 1)
+    _sync(dev)
+    return calls
+
+
+def phase_bf16_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
+    """Every leaf-row call of an untimed 512x512 1-spp frame of bitsh (64:
+    32 waves, closest and shadow rays) and of bits2h (128: round A and the
+    carry-in round B of each): the new bf16 kernel bit-identical to its
+    first design and to the plain version, the two designs timed in turns,
+    with each call's width, live share and bound, and the sums a spp.
+    Then the SASS counts of both designs."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    for algo, n_calls in BF16_FRAMES.items():
+        calls = _leaf_calls(scene, dev, w, h, algo)
+        if len(calls) != n_calls:
+            raise AssertionError(f"the {algo} frame made {len(calls)} leaf-row calls, not "
+                                 f"{n_calls}")
+        total = {"new": 0.0, "pr4": 0.0, "bound": 0.0}
+        for i, (args, kw) in enumerate(calls):
+            carry = kw.get("carry")
+            if kw.get("precision") != "bf16" or len(args) != 6 or args[5]:
+                raise AssertionError(f"{algo} call {i}: not a bf16 closest-hit call ({kw})")
+            got = leaf_rows.leaf_rows(*args, **kw)
+            old = leaf_rows.leaf_rows_first_design(*args, precision="bf16", carry=carry)
+            want, p_ms = _time_once(lambda: leaf_rows.leaf_rows_plain(*args, **kw), dev)
+            if not (_bits_same(got, want) and _bits_same(old, want)):
+                raise AssertionError(f"{algo} call {i}: a bf16 design differs from the plain "
+                                     f"version")
+            t = _in_turns({"pr4": lambda: leaf_rows.leaf_rows_first_design(
+                               *args, precision="bf16", carry=carry),
+                           "new": lambda: leaf_rows.leaf_rows(*args, **kw)}, reps, dev)
+            table, lists, n_rows, rays = args[:4]
+            start = carry[0] if carry is not None else rays[6]
+            live = (start > leaf_rows.EPS).view(lists.shape[0], -1).sum(1)
+            tests = float((torch.where(n_rows < 0, table.shape[0], n_rows) * live).sum()) * 8
+            nbytes = _nbytes(table, lists, n_rows, rays) + 16 * rays.shape[1] * (
+                2 if carry is not None else 1)
+            bound_ms, bound_by = _bound(tests * (MT_FLOPS - MT_BF16_FLOPS), nbytes,
+                                        tests * MT_BF16_FLOPS)
+            for k in ("new", "pr4"):
+                total[k] += t[k]
+            total["bound"] += bound_ms
+            kind = "round B" if carry is not None else "round A" if algo == "bits2h" else ""
+            say(f"[3i bf16 frame] {algo} call {i:3d} {kind:7s} "
+                f"width {rays.shape[1]:6d}, live {float(live.sum()) / rays.shape[1]:6.1%}, "
+                f"bit-identical, new {t['new']:.4f} ms, first design {t['pr4']:.4f} ms "
+                f"({t['pr4'] / t['new']:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{tests:.4g} tests), plain {p_ms:.1f} ms, mean list "
+                f"{float(n_rows.clamp(min=0).float().mean()):.1f} rows of {lists.shape[1]}")
+        say(f"[3i bf16 frame] {algo}: one {w}x{h} spp's {len(calls)} leaf-row calls: new "
+            f"{total['new']:.3f} ms, first design {total['pr4']:.3f} ms "
+            f"({total['pr4'] / total['new']:.2f}x), bound {total['bound']:.3f} ms")
+    if dev.type == "cuda":
+        _leaf_sass(say, leaf_rows.BF16_ENTRY_POINTS + BF16_FIRST, "3i bf16 frame")
 
 
 def _entry_points_of(algo: str) -> list[str]:
@@ -1214,6 +1369,8 @@ def phase_bits_bench(dev: torch.device, w: int = W, h: int = H, spp: int = BITS_
         say(f"[4e bits] {algo}: {w}x{h} @ 1 spp, frame {dt:.3f} s, energy {energy!r} "
             f"(bitsru8 {float(ref1.sum())!r}), launches {counts}; vs bitsru8: {gate}")
     mine = {k: launches[k] for k in VARIANTS if k in launches}
+    for k in BF16_FIRST:  # yardsticks: no frame above launched them
+        mine[k], source[k] = launches.get(k, 0), "the bits frames"
     say("[4e bits] launches for the kernels line: "
         + ", ".join(f"{k} {v} ({source[k]})" for k, v in mine.items()))
     return mine
@@ -1262,7 +1419,7 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
         rays, a = stream.pack_rays(o, bits.nudge(d), tm, act, BLOCK)
         base = (tr.stream, rays, a, BLOCK)
         g = a.shape[0] // BLOCK
-        skip = stream_walk.stream_walk(*base, "skip", any_hit, tr.max_depth)
+        skip = stream_walk.stream_walk_skip_pr3(*base, any_hit)
         skip_work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
         skip_plain, skip_ms = _time_once(lambda: stream_walk.stream_walk_plain(
             *base, "skip", any_hit, tr.max_depth, work=skip_work), dev)
@@ -1287,7 +1444,7 @@ def phase_schedule_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
                                      f"plain version")
             t = _in_turns({"pr5": lambda: first(*base, algo, any_hit),
                            "new": lambda: stream_walk.stream_walk(*args),
-                           "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
+                           "skip": lambda: stream_walk.stream_walk_skip_pr3(*base, any_hit)},
                           10, dev)
             k_ms = t["new"]
             turns = (f"; in turns: first design {t['pr5']:.3f} ms ({t['pr5'] / k_ms:.2f}x), "
@@ -1361,11 +1518,7 @@ def _walk_sass(say, entries, label: str) -> None:
     first ilv design's node rows also divide 1/d, inside that span); a
     test's count is its kind's span, first to last such instruction, over
     its tests.  A static count: the division's rare path counts once."""
-    regs = {}
-    log = _build.build().with_suffix(".log")
-    for ln in _ptxas_summary(log.read_text()) if log.exists() else []:
-        name, rest = ln.split(": ", 1)
-        regs[name] = rest
+    regs = _ptxas_regs()
     for entry in entries:
         tests = [x for x in _visit.loop_bodies(entry) if any(o.startswith("FMNMX") for o in x[2])]
         inner = [x for x in tests if not any(y is not x and x[0] <= y[0] and y[1] <= x[1]
@@ -1399,7 +1552,7 @@ def phase_ilv_frame(dev: torch.device, waves, reps: int = 5) -> list:
         base = (stream_t, rays, a, blk)
         g = a.shape[0] // blk
         got = stream_walk.stream_walk(*args)
-        skip = stream_walk.stream_walk(*base, "skip", any_hit, depth)
+        skip = stream_walk.stream_walk_skip_pr3(*base, any_hit)
         old = stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit)
         work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
         want, p_ms = _time_once(lambda: stream_walk.stream_walk_plain(*args, work=work), dev)
@@ -1408,7 +1561,7 @@ def phase_ilv_frame(dev: torch.device, waves, reps: int = 5) -> list:
                                  f"the plain version disagree")
         t = _in_turns({"pr5": lambda: stream_walk.stream_walk_ilv_pr5(*base, algo, any_hit),
                        "new": lambda: stream_walk.stream_walk(*args),
-                       "skip": lambda: stream_walk.stream_walk(*base, "skip", any_hit)},
+                       "skip": lambda: stream_walk.stream_walk_skip_pr3(*base, any_hit)},
                       reps, dev)
         work = work.sum(0).tolist()
         works.append(work)
@@ -1886,7 +2039,7 @@ KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     **{name: ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287")
-       for name in VARIANTS},
+       for name in (*VARIANTS, *BF16_FIRST)},
     "inst_rows_closest": ("surf_tpu_torch/csrc/inst_rows.cu",
                           "surf_tpu/accel/pallas_instanced.py:260"),
     "inst_rows_any": ("surf_tpu_torch/csrc/inst_rows.cu",
@@ -1896,7 +2049,9 @@ KERNELS = {
        for a in ("skip", "stack") for m in ("closest", "any")},
     **{f"bvh_walk_{m}": ("surf_tpu_torch/csrc/bvh_walk.cu",
                          "surf_tpu/accel/pallas_traverse.py:193") for m in ("closest", "any")},
-    # ilv serves skip2 (_walk_block_pair, pallas_wide.py:314) as ilv2
+    # ilv serves skip2 (_walk_block_pair, pallas_wide.py:314) as ilv2, and
+    # skip (_walk_block, :120) as ilv1; stream_walk_skip_* are its first
+    # design, the yardstick
     **{f"stream_walk_ilv_{m}": ("surf_tpu_torch/csrc/stream_walk_ilv.cu",
                                 "surf_tpu/accel/pallas_wide.py:264") for m in ("closest", "any")},
     **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
@@ -1957,6 +2112,7 @@ def main() -> int:
     kernels.update(timed("3c stream", phase_stream_kernel, dev))
     kernels.update(timed("3d binary", phase_bvh_kernel, dev))
     kernels.update(timed("3e variants", phase_variants, dev))
+    timed("3i bf16 frame", phase_bf16_frame, dev)
     launches, bench_img = timed("4 bench", phase_bench, dev)
     launches.update(timed("4b twolevelp", phase_twolevelp_bench, dev))
     launches.update(timed("4d walks", phase_walk_bench, dev, bench_img))

@@ -41,8 +41,10 @@ ILV_PR5_ENTRY_POINTS = ("stream_walk_ilv_closest_pr5", "stream_walk_ilv_any_pr5"
 # beside stream_walk_spec{,b}_{closest,any} (stream_walk_spec.cu).
 SPEC_PR5_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}_pr5" for a in ("spec", "specb")
                               for m in ("closest", "any"))
-# The walk kernels with an entry.cuh getter: the skip walk, the first ilv
-# and spec designs, stream_walk_ilv.cu's and stream_walk_spec.cu's.
+# The walk kernels with an entry.cuh getter: the skip walk's first design
+# (stream_walk_skip_*, reached only by stream_walk_skip_pr3: algo="skip"
+# launches stream_walk_ilv_*), the first ilv and spec designs,
+# stream_walk_ilv.cu's and stream_walk_spec.cu's.
 WALK_KERNELS = ("stream_walk_skip_closest", "stream_walk_skip_any", *ILV_PR5_ENTRY_POINTS,
                 "stream_walk_ilv_closest", "stream_walk_ilv_any", *SPEC_PR5_ENTRY_POINTS,
                 *(f"stream_walk_{a}_{m}" for a in ("spec", "specb") for m in ("closest", "any")))
@@ -145,14 +147,16 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        from .leaf_rows import ENTRY_POINTS, LIVE_ENTRY_POINTS, PR1_ENTRY_POINTS
+        from .leaf_rows import (BF16_ENTRY_POINTS, ENTRY_POINTS, FIRST_DESIGNS,
+                                LIVE_ENTRY_POINTS)
 
-        for name in (*ENTRY_POINTS, *PR1_ENTRY_POINTS):
+        for name in (*ENTRY_POINTS, *FIRST_DESIGNS.values()):
             fn = getattr(lib, name)
-            if name in LIVE_ENTRY_POINTS:
+            if name in LIVE_ENTRY_POINTS + BF16_ENTRY_POINTS:
                 # table, table_rows, lists, cap, n_rows, rays, n_rays,
-                # block_rays, split_rows, t, r, u, v, keys, arrivals, stream
-                fn.argtypes = [p, i, p, i, p, p, i, i, i, p, p, p, p, p, p, p]
+                # block_rays, split_rows, t_in, r_in, u_in, v_in, t, r, u, v,
+                # keys, arrivals, stream
+                fn.argtypes = [p, i, p, i, p, p, i, i, i, p, p, p, p, p, p, p, p, p, p, p]
             else:
                 # table, table_rows, lists, cap, n_rows, rays, n_rays,
                 # block_rays, t_in, r_in, u_in, v_in, t, r, u, v, stream
@@ -213,7 +217,8 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p]
             fn.restype = i
         # The kernel an entry point launches (entry.cuh) and its device name.
-        for name in (LIVE_ENTRY_POINTS + PR1_ENTRY_POINTS + PARTS_ENTRY_POINTS
+        for name in (LIVE_ENTRY_POINTS + BF16_ENTRY_POINTS + tuple(FIRST_DESIGNS.values())
+                     + PARTS_ENTRY_POINTS
                      + COND_ENTRY_POINTS + BODY_ENTRY_POINTS + SPLAT_ENTRY_POINTS
                      + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS + SPEC_ENTRY_POINTS
                      + MXU_ENTRY_POINTS + WALK_KERNELS):

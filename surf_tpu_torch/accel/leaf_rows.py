@@ -14,9 +14,14 @@ entry points ``leaf_rows_closest`` and ``leaf_rows_any``, which every
 (t_max > 1e-5) are tested, each list's rows are split into work items of
 ``split_rows(n)`` rows, and the splits merge through an exact (t, list
 position) key in a scratch that this module allocates once per device and
-size (all zero between calls).  ``leaf_rows_pr1`` launches the first
-design's kernel on the same function, to time the two side by side; no
-algo reaches it.
+size (all zero between calls).  The bf16 sequential closest hit, without
+and with carry-in (``leaf_rows_mt_bf16_closest``,
+``leaf_rows_mt_bf16_carry_closest``: ``bitsh``, ``bits2h``), launches
+``leaf_rows_bf16_live_kernel``: the same structure, with a start t of
+t_max or the carry-in t, records staged as bf16x2 pairs and the record
+test's polynomial in packed bf16x2 ops.  ``leaf_rows_first_design``
+launches the first design's kernel on the function of any of these four,
+to time the designs side by side; no algo reaches it.
 
 The instantiation is chosen by five arguments, as the TPU kernel's flags
 choose its body:
@@ -82,14 +87,18 @@ ENTRY_POINTS = {
     "leaf_rows_bw_ilp_carry_closest": ("bw", "ilp", "f32", True, False),
 }
 _NAME_OF = {v: k for k, v in ENTRY_POINTS.items()}
-# The entry points of leaf_rows_live_kernel (the split merge's scratch).
+# The entry points of leaf_rows_live_kernel and of leaf_rows_bf16_live_kernel
+# (both take the split merge's scratch; the bf16 ones also the carry-in).
 LIVE_ENTRY_POINTS = ("leaf_rows_closest", "leaf_rows_any")
-# The first design's kernel on the function of leaf_rows_closest and
-# leaf_rows_any (trim False, True), reached only through leaf_rows_pr1.
-PR1_ENTRY_POINTS = ("leaf_rows_closest_pr1", "leaf_rows_any_pr1")
-
+BF16_ENTRY_POINTS = ("leaf_rows_mt_bf16_closest", "leaf_rows_mt_bf16_carry_closest")
+# The first design's kernel on the function of each redesigned entry point
+# (the f32 pair, the bf16 pair), reached only through leaf_rows_first_design.
+FIRST_DESIGNS = {"leaf_rows_closest": "leaf_rows_closest_pr1",
+                 "leaf_rows_any": "leaf_rows_any_pr1",
+                 "leaf_rows_mt_bf16_closest": "leaf_rows_mt_bf16_closest_pr4",
+                 "leaf_rows_mt_bf16_carry_closest": "leaf_rows_mt_bf16_carry_closest_pr4"}
 # Kernel launches since the last reset, per entry point of leaf_rows.cu.
-LAUNCHES = dict.fromkeys((*ENTRY_POINTS, *PR1_ENTRY_POINTS), 0)
+LAUNCHES = dict.fromkeys((*ENTRY_POINTS, *FIRST_DESIGNS.values()), 0)
 
 # The live kernel's merge scratch per device: (keys int64, arrivals int32),
 # zeroed once when allocated and left zero by every launch.  Calls share it,
@@ -152,17 +161,22 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
     return _launch(name, table, lists, n_rows, rays, block_rays, carry)
 
 
-def leaf_rows_pr1(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
-                  rays: torch.Tensor, block_rays: int, trim: bool = False):
-    """``leaf_rows`` (f32 sequential Möller–Trumbore, no carry) through the
-    first design's kernel: one thread per ray, every lane, one block per 256
-    rays walking the whole list.  The same function as ``leaf_rows_closest``
-    and ``leaf_rows_any``; the plain version for CPU tensors."""
-    _check(table, lists, n_rows, rays, block_rays, None)
+def leaf_rows_first_design(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
+                           rays: torch.Tensor, block_rays: int, trim: bool = False, *,
+                           precision: str = "f32", carry=None):
+    """``leaf_rows`` (sequential Möller–Trumbore: f32 without carry, or
+    bf16) through the first design's kernel: one thread per ray, every
+    lane, one block per 256 rays walking the whole list (``FIRST_DESIGNS``).
+    The same function as the entry point it stands beside; the plain version
+    for CPU tensors."""
+    name = entry_point("mt", "seq", precision, carry is not None, trim)
+    if name not in FIRST_DESIGNS:
+        raise ValueError(f"{name} has no first design apart from itself")
+    _check(table, lists, n_rows, rays, block_rays, carry)
     if table.device.type == "cpu":
-        return leaf_rows_plain(table, lists, n_rows, rays, block_rays, trim)
-    return _launch(PR1_ENTRY_POINTS[int(bool(trim))], table, lists, n_rows, rays,
-                   block_rays, None)
+        return leaf_rows_plain(table, lists, n_rows, rays, block_rays, trim,
+                               precision=precision, carry=carry)
+    return _launch(FIRST_DESIGNS[name], table, lists, n_rows, rays, block_rays, carry)
 
 
 def split_rows(n_rays: int) -> int:
@@ -210,12 +224,12 @@ def _launch(name, table, lists, n_rows, rays, block_rays, carry):
     head = (table.data_ptr(), table.shape[0], lists.data_ptr(), lists.shape[1],
             n_rows.data_ptr(), rays.data_ptr(), n, block_rays)
     outs = (t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr())
-    if name in LIVE_ENTRY_POINTS:
+    c_in = [x.data_ptr() for x in carry] if carry is not None else [None] * 4
+    if name in LIVE_ENTRY_POINTS + BF16_ENTRY_POINTS:
         keys, arrivals = _scratch(torch.device("cuda", torch.cuda.current_device()), n)
-        err = getattr(lib, name)(*head, split_rows(n), *outs, keys.data_ptr(),
+        err = getattr(lib, name)(*head, split_rows(n), *c_in, *outs, keys.data_ptr(),
                                  arrivals.data_ptr(), stream)
     else:
-        c_in = [x.data_ptr() for x in carry] if carry is not None else [None] * 4
         err = getattr(lib, name)(*head, *c_in, *outs, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")

@@ -34,15 +34,17 @@ never hit); the caller nudges zero direction components, so 1/d is
 finite.
 
 On a CUDA tensor ``stream_walk`` launches the hand-written kernels of
-``csrc/stream_walk.cu`` (``skip2`` and ``ilvN``: ``csrc/stream_walk_ilv.cu``;
-``specN`` and ``specbN``: ``csrc/stream_walk_spec.cu``; both one packet a
-work item, its active rays spread over a cluster of 8 blocks);
-on a CPU tensor it runs ``stream_walk_plain``, the plain PyTorch version,
-which walks all packets in lockstep, each with its own cursor.
+``csrc/stream_walk.cu`` (``stack``), ``csrc/stream_walk_ilv.cu`` (``skip``,
+``skip2`` and ``ilvN``: ``skip`` is ``ilv1``'s function, one cursor a
+packet along the skip links) and ``csrc/stream_walk_spec.cu`` (``specN``
+and ``specbN``); the last two take one packet a work item, its active
+rays spread over a cluster of 8 blocks.  On a CPU tensor it runs
+``stream_walk_plain``, the plain PyTorch version, which walks all packets
+in lockstep, each with its own cursor.  ``stream_walk_skip_pr3``,
 ``stream_walk_ilv_pr5`` and ``stream_walk_spec_pr5`` launch the first
-designs of skip2 / ilvN (N packets a block) and of specN / specbN (a
-block a packet), to time them beside ``stream_walk``; no algo reaches
-them.
+designs of skip (a 512-thread block a packet, in ``stream_walk.cu``), of
+skip2 / ilvN (N packets a block) and of specN / specbN (a block a
+packet), to time them beside ``stream_walk``; no algo reaches them.
 
 Inputs (all on one device):
   stream  [E, 128] f32    the stream (node and leaf rows, lanes 9/10 meta)
@@ -77,7 +79,8 @@ SPECB_VISITS = 8    # specb's group of windows between any-hit checks
 
 # Kernel launches since the last reset, per entry point of stream_walk.cu,
 # stream_walk_ilv.cu and stream_walk_spec.cu (one kernel template per walk
-# of parse_algo, and the first ilv and spec designs).
+# of parse_algo, and the first skip, ilv and spec designs; a skip walk
+# counts under stream_walk_ilv_*, its first design under stream_walk_skip_*).
 LAUNCHES = dict.fromkeys((*_build.WALK_ENTRY_POINTS, *_build.ILV_PR5_ENTRY_POINTS,
                           *_build.SPEC_PR5_ENTRY_POINTS), 0)
 
@@ -143,11 +146,24 @@ def stream_walk(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
     walk, width = _check(stream, rays, act, block_rays, algo)
     if stream.device.type == "cpu":
         return stream_walk_plain(stream, rays, act, block_rays, algo, any_hit, max_depth)
-    # the kernel's one size argument: the stack's depth, ilvN's N or rows
-    # per window (spec, specb); the skip walk ignores it
+    # skip is ilv1 (parse_algo gives it N = 1); the kernel's one size
+    # argument: the stack's depth, ilvN's N or rows per window (spec, specb)
+    walk = "ilv" if walk == "skip" else walk
     arg = stack_depth(max_depth) if walk == "stack" else width
     name = f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"
     return _launch(name, stream, rays, act, block_rays, arg)
+
+
+def stream_walk_skip_pr3(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
+                         block_rays: int, any_hit: bool = False):
+    """``stream_walk`` of ``skip`` through the first design's kernel
+    (``stream_walk.cu``: a 512-thread block a packet, every lane, 4 rays a
+    thread at 2048-ray packets); the plain version for CPU tensors."""
+    _check(stream, rays, act, block_rays, "skip")
+    if stream.device.type == "cpu":
+        return stream_walk_plain(stream, rays, act, block_rays, "skip", any_hit)
+    name = f"stream_walk_skip_{'any' if any_hit else 'closest'}"
+    return _launch(name, stream, rays, act, block_rays, 1)
 
 
 def stream_walk_ilv_pr5(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,

@@ -48,6 +48,7 @@ TIMED_SPP = 4     # unprofiled spp timed on the host clock
 # so the profiler links them to no CPU event: they count by name.
 OWN_KERNELS = {"leaf_rows_kernel": "leaf_rows kernel",
                "leaf_rows_live_kernel": "leaf_rows kernel",
+               "leaf_rows_bf16_live_kernel": "leaf_rows kernel",
                "inst_rows_kernel": "inst_rows kernel",
                "stream_walk_": "stream_walk kernel",
                "bvh_walk_kernel": "bvh_walk kernel"}

@@ -18,9 +18,13 @@
 //
 // Two designs.  The closest-hit and any-hit trim entry points of the f32
 // sequential Möller–Trumbore test (leaf_rows_closest, leaf_rows_any), which
-// every bitsru8 frame runs, use leaf_rows_live_kernel (below).  The other
-// nine entry points, and the same two as leaf_rows_{closest,any}_pr1 (kept
-// to time the designs side by side), use leaf_rows_kernel:
+// every bitsru8 frame runs, use leaf_rows_live_kernel, and the bf16 test's
+// pair (leaf_rows_mt_bf16_closest, leaf_rows_mt_bf16_carry_closest: bitsh,
+// bits2h) the same structure with packed bf16x2 arithmetic,
+// leaf_rows_bf16_live_kernel (both below).  The other seven entry points,
+// and the same four as leaf_rows_{closest,any}_pr1 and
+// leaf_rows_mt_bf16{,_carry}_closest_pr4 (kept to time the designs side by
+// side), use leaf_rows_kernel:
 // one thread per ray, 256 rays per block; a list of block_rays rays
 // (a packet, or one sub-list of it) is served by block_rays / 256 blocks
 // that all walk the list.  Rows are read by row id straight from the table
@@ -278,45 +282,24 @@ __device__ __forceinline__ void row_exact(const float4* row, int pos0, float ox,
   }
 }
 
-template <bool kAny>
-__global__ void __launch_bounds__(kThreads)
-leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
-                      const int* __restrict__ lists, int cap,
-                      const int* __restrict__ n_rows,
-                      const float* __restrict__ rays, int n_rays, int block_rays,
-                      int split_rows, float* __restrict__ t_out,
-                      int* __restrict__ r_out, float* __restrict__ u_out,
-                      float* __restrict__ v_out,
-                      unsigned long long* __restrict__ keys,
-                      unsigned* __restrict__ arrivals) {
-  using Key = std::conditional_t<kAny, unsigned, unsigned long long>;
-  __shared__ float4 staged[kChunk * kLane / 4];
-  __shared__ int live_lane[kThreads];
-  __shared__ int warp_live[kThreads / 32];
-  __shared__ bool last;
-
-  const int slices = block_rays / kThreads;  // also the lanes per thread
-  const int list_id = blockIdx.x / slices;
-  const int slice = blockIdx.x % slices;
-  int count = n_rows[list_id];
-  const bool sweep = count < 0;
-  if (sweep) count = table_rows;
-  const int parts = max(1, (count + split_rows - 1) / split_rows);
-  if (static_cast<int>(blockIdx.y) >= parts) return;
-  const bool writes_dead = slice == 0 && blockIdx.y == 0;
-
-  // Compaction: thread i owns lanes [i * slices, (i + 1) * slices) of the
-  // list; one block scan of the per-thread live counts ranks the live lanes.
-  // The t_max loads go kUnroll at a time, all in flight together.
-  const size_t stride = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
-  const size_t first = static_cast<size_t>(list_id) * block_rays;
-  const float* tm_of = rays + 6 * stride + first;
+// Live-ray compaction of list list_id, shared by the live kernels: thread i
+// owns lanes [i * slices, (i + 1) * slices) of the list; one block scan of
+// the per-thread live counts (start t > 1e-5; NaN is not live) ranks the
+// live lanes, and the lanes of rank [slice * 256, slice * 256 + 256) go to
+// live_lane in rank order.  The start t loads go kUnroll at a time, all in
+// flight together.  dead(lane, start t) is called for every dead lane when
+// writes_dead.  Returns the list's live count; every thread of the block
+// calls it.
+template <class Dead>
+__device__ __forceinline__ int compact_live(const float* __restrict__ start_of, int slices,
+                                            int slice, bool writes_dead, int* live_lane,
+                                            int* warp_live, Dead dead) {
   const int lane0 = threadIdx.x * slices;
   int mine = 0;
   for (int i0 = 0; i0 < slices; i0 += kUnroll) {
     float tmv[kUnroll];
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i) tmv[i] = i0 + i < slices ? tm_of[lane0 + i0 + i] : 0.0f;
+    for (int i = 0; i < kUnroll; ++i) tmv[i] = i0 + i < slices ? start_of[lane0 + i0 + i] : 0.0f;
 #pragma unroll
     for (int i = 0; i < kUnroll; ++i) mine += tmv[i] > surf::kEps;
   }
@@ -340,20 +323,112 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
   const int lo_rank = slice * kThreads;
   for (int i = 0; i < slices; ++i) {  // the loads above left these in L1
     const int lane = lane0 + i;
-    const float tm = tm_of[lane];
+    const float tm = start_of[lane];
     if (tm > surf::kEps) {
       if (rank >= lo_rank && rank < lo_rank + kThreads) live_lane[rank - lo_rank] = lane;
       ++rank;
     } else if (writes_dead) {
-      t_out[first + lane] = tm;
-      r_out[first + lane] = -1;
-      u_out[first + lane] = 0.0f;
-      v_out[first + lane] = 0.0f;
+      dead(lane, tm);
     }
   }
+  return n_live;
+}
+
+// The split merge of the live kernels (point 3 above): each thread's key
+// goes into its ray's slot by atomicMax; the last split of the list to
+// arrive takes the merged key and resets the slot and the counter.  Returns
+// false in every other block.  Every thread of the block calls it.
+template <class Key>
+__device__ __forceinline__ bool merge_splits(Key& key, bool has_ray, Key* slot,
+                                             unsigned* arrival, int parts, bool* last) {
+  if (parts == 1) return true;
+  if (key != 0) atomicMax(slot, key);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(arrival, 1u) == static_cast<unsigned>(parts - 1);
+  __syncthreads();
+  if (!*last) return false;
+  __threadfence();
+  if (has_ray) key = atomicExch(slot, Key(0));
+  if (threadIdx.x == 0) *arrival = 0u;
+  return true;
+}
+
+// A live kernel's block (points 1 and 2 above): list list_id, whose lanes
+// start at first, its slice of the list's live lanes (slices of them a
+// list), and the list's rows, count of them (the whole table with sweep),
+// in parts splits of split_rows rows.
+struct LiveBlock {
+  int slices, list_id, slice, count, parts;
+  bool sweep;
+  size_t first;
+};
+
+__device__ __forceinline__ LiveBlock live_block(const int* __restrict__ n_rows, int table_rows,
+                                                int block_rays, int split_rows) {
+  LiveBlock b;
+  b.slices = block_rays / kThreads;  // also the lanes per thread
+  b.list_id = blockIdx.x / b.slices;
+  b.slice = blockIdx.x % b.slices;
+  b.count = n_rows[b.list_id];
+  b.sweep = b.count < 0;
+  if (b.sweep) b.count = table_rows;
+  b.parts = max(1, (b.count + split_rows - 1) / split_rows);
+  b.first = static_cast<size_t>(b.list_id) * block_rays;
+  return b;
+}
+
+// A lane's start values, its result when no record hits below its start t
+// t0: (t_max, -1, 0, 0), or with carry-in (t_in, r_in, u_in, v_in).
+template <bool kCarry>
+__device__ __forceinline__ void write_start(size_t at, float t0, const int* __restrict__ r_in,
+                                            const float* __restrict__ u_in,
+                                            const float* __restrict__ v_in,
+                                            float* __restrict__ t_out, int* __restrict__ r_out,
+                                            float* __restrict__ u_out,
+                                            float* __restrict__ v_out) {
+  t_out[at] = t0;
+  r_out[at] = kCarry ? r_in[at] : -1;
+  u_out[at] = kCarry ? u_in[at] : 0.0f;
+  v_out[at] = kCarry ? v_in[at] : 0.0f;
+}
+
+// t_in, r_in, u_in and v_in are not read: the kernel takes them to share
+// leaf_rows_bf16_live_kernel's signature and launcher.
+template <bool kAny>
+__global__ void __launch_bounds__(kThreads)
+leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
+                      const int* __restrict__ lists, int cap,
+                      const int* __restrict__ n_rows,
+                      const float* __restrict__ rays, int n_rays, int block_rays,
+                      int split_rows, const float* __restrict__ t_in,
+                      const int* __restrict__ r_in, const float* __restrict__ u_in,
+                      const float* __restrict__ v_in, float* __restrict__ t_out,
+                      int* __restrict__ r_out, float* __restrict__ u_out,
+                      float* __restrict__ v_out,
+                      unsigned long long* __restrict__ keys,
+                      unsigned* __restrict__ arrivals) {
+  using Key = std::conditional_t<kAny, unsigned, unsigned long long>;
+  __shared__ float4 staged[kChunk * kLane / 4];
+  __shared__ int live_lane[kThreads];
+  __shared__ int warp_live[kThreads / 32];
+  __shared__ bool last;
+
+  const LiveBlock b = live_block(n_rows, table_rows, block_rays, split_rows);
+  if (static_cast<int>(blockIdx.y) >= b.parts) return;
+
+  const size_t stride = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
+  const size_t first = b.first;
+  const int n_live = compact_live(
+      rays + 6 * stride + first, b.slices, b.slice, b.slice == 0 && blockIdx.y == 0,
+      live_lane, warp_live, [&](int lane, float tm) {
+        write_start<false>(first + lane, tm, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
+      });
+  const int lo_rank = b.slice * kThreads;
   if (n_live <= lo_rank) return;
   __syncthreads();
 
+  const int wid = threadIdx.x >> 5;
   const bool has_ray = lo_rank + static_cast<int>(threadIdx.x) < n_live;
   const bool warp_has = lo_rank + wid * 32 < n_live;
   const size_t ray = has_ray ? first + live_lane[threadIdx.x] : first;
@@ -368,15 +443,15 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
   int best_pos = -1;
 
   const float4* table4 = reinterpret_cast<const float4*>(table);
-  const int* list = lists + static_cast<size_t>(list_id) * cap;
+  const int* list = lists + static_cast<size_t>(b.list_id) * cap;
   const int lo = blockIdx.y * split_rows;
-  const int hi = min(count, lo + split_rows);
+  const int hi = min(b.count, lo + split_rows);
   for (int base = lo; base < hi; base += kChunk) {
     const int m = min(kChunk, hi - base);
     __syncthreads();  // every thread is done with the previous chunk
     for (int i = threadIdx.x; i < m * (kLane / 4); i += kThreads) {
       const int k = i / (kLane / 4);
-      const int row = sweep ? base + k : list[base + k];
+      const int row = b.sweep ? base + k : list[base + k];
       staged[i] = table4[static_cast<size_t>(row) * (kLane / 4) + i % (kLane / 4)];
     }
     __syncthreads();
@@ -418,24 +493,12 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
       key = ~((static_cast<unsigned long long>(tb) << 32) | static_cast<unsigned>(best_pos));
     }
   }
-  if (parts > 1) {
-    Key* slot = reinterpret_cast<Key*>(keys) + ray;
-    if (key != 0) atomicMax(slot, key);
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(&arrivals[blockIdx.x], 1u) == static_cast<unsigned>(parts - 1);
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    if (has_ray) key = atomicExch(slot, Key(0));
-    if (threadIdx.x == 0) arrivals[blockIdx.x] = 0u;
-  }
+  if (!merge_splits(key, has_ray, reinterpret_cast<Key*>(keys) + ray, &arrivals[blockIdx.x],
+                    b.parts, &last))
+    return;
   if (!has_ray) return;
   if (key == 0) {
-    t_out[ray] = tm;
-    r_out[ray] = -1;
-    u_out[ray] = 0.0f;
-    v_out[ray] = 0.0f;
+    write_start<false>(ray, tm, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
     return;
   }
   if constexpr (kAny) {
@@ -447,11 +510,11 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
     const unsigned long long k = ~key;
     const int pos = static_cast<int>(k & 0xffffffffu);
     const int p = pos / kTris;
-    const int row = sweep ? p : list[p];
+    const int row = b.sweep ? p : list[p];
     const float4* rec = table4 + static_cast<size_t>(row) * (kLane / 4) + (pos % kTris) * 4;
-    const float4 a = rec[0], b = rec[1], c = rec[2];
+    const float4 x = rec[0], y = rec[1], c = rec[2];
     float t, u, v;
-    surf::mt_hit(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz, dx, dy, dz,
+    surf::mt_hit(x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w, c.x, ox, oy, oz, dx, dy, dz,
                  CUDART_INF_F, t, u, v);
     t_out[ray] = __uint_as_float(static_cast<unsigned>(k >> 32));
     r_out[ray] = __float_as_int(c.y);
@@ -460,20 +523,259 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
   }
 }
 
-// The grid of leaf_rows_live_kernel: (lists x slices, splits), the splits
-// from max(cap, table_rows), which bounds every list's rows.
-template <bool kAny>
-int launch_live(const float* table, int table_rows, const int* lists, int cap,
+// leaf_rows_bf16_live_kernel: the bf16 sequential Möller–Trumbore closest
+// hit (the `h` flag's record test, mt.cuh mt_hit_bf16), without (kCarry
+// false) and with carry-in, with the function of leaf_rows_kernel<kMT,
+// false, true, kCarry, false> bit for bit.  The first design (kept as the
+// entry points leaf_rows_mt_bf16{,_carry}_closest_pr4) had every lane do
+// the full work and one block walk a whole list, as row 1's did, and its
+// arithmetic rounded each of ~45 f32 ops with a conversion to bf16 and one
+// back (plus the record's nine lanes again at every test): a test cost
+// about three times an f32 one.  This design takes row 1's structure
+// (compaction, row splits, the (t, position) merge) and does the
+// arithmetic as the TPU's bf16 path meant it, two results an instruction:
+//
+// 1. Live-ray compaction (compact_live).  A lane's start t is t_max, or
+//    t_in with carry-in; it is live when that is above 1e-5 (NaN is not
+//    live): a start t <= 1e-5 cannot pass `t >= eps & t < best_t`.  Dead
+//    lanes get their start values, (t_max, -1, 0, 0) or (t_in, r_in, u_in,
+//    v_in), from the block of slice 0, split 0.
+// 2. Row splits and the exact merge, as leaf_rows_live_kernel: the least
+//    (t, list position x 8 + j) below the start t.  bf16 t has 8
+//    significant bits, so equal t at two positions is common here; the
+//    position in the key keeps the first, as the sequential updates do.
+//    The last split decodes the key, recomputes u and v with mt_hit_bf16 on
+//    the winning record (the same rounded ops, the same bits) and reads r
+//    from its lane 9; with no key the lane keeps its start values.
+// 3. Records converted once, when staged.  A row is staged as 4 pairs of
+//    records (j, j + 1), j = 0, 2, 4, 6: for each of lanes 0-8 one bf16x2
+//    word, record j in the low half, padded to 12 words (three 16-byte
+//    loads a pair): 192 bytes a row instead of 512.  The ray's six lanes
+//    are rounded once at load and splatted into both halves.
+// 4. The polynomial of two records in one packed op each (mt.cuh bmul2,
+//    badd2, bsub2 in mt_hit_bf16's operand order, 44 for the two tests),
+//    never contracted into an fma.  The reciprocal f = 1 / a is taken in
+//    f32 on the widened a by the in-range path (mt.cuh rcp_in_range: the
+//    IEEE bits for |a| < 2^126) and rounded by one cvt.rn.bf16x2.f32; a row
+//    in which some |a| >= 2^126 (or inf) runs again with the IEEE division.
+//    a, u, v and t are widened (a shift or a mask) for the compares, which
+//    stay f32 as in mt_hit_bf16, record j's update before record j + 1's:
+//    the polynomial does not read best_t, so the sequential strictly-closer
+//    rule is kept.
+
+constexpr int kPairWords = 12;               // a record pair: 9 bf16x2 lanes, 3 pad
+constexpr int kRowQuads = kTris / 2 * kPairWords / 4;  // uint4 loads a staged row
+
+struct RayBf2 {
+  unsigned ox, oy, oz, dx, dy, dz;  // each lane rounded to bf16, in both halves
+};
+
+// The Möller–Trumbore polynomial of a record pair (w: lanes 0-8 as bf16x2
+// words) against a ray: a, u, v, t of both records, as bf16x2 words.
+// kExact takes f = 1 / a by the IEEE division.
+template <bool kExact>
+__device__ __forceinline__ void mt_pair_bf16x2(const unsigned* w, const RayBf2& r,
+                                               unsigned& a, unsigned& u, unsigned& v,
+                                               unsigned& t) {
+  using surf::badd2;
+  using surf::bmul2;
+  using surf::bsub2;
+  const unsigned v0x = w[0], v0y = w[1], v0z = w[2];
+  const unsigned e1x = w[3], e1y = w[4], e1z = w[5];
+  const unsigned e2x = w[6], e2y = w[7], e2z = w[8];
+  const unsigned hx = bsub2(bmul2(r.dy, e2z), bmul2(r.dz, e2y));
+  const unsigned hy = bsub2(bmul2(r.dz, e2x), bmul2(r.dx, e2z));
+  const unsigned hz = bsub2(bmul2(r.dx, e2y), bmul2(r.dy, e2x));
+  a = badd2(badd2(bmul2(e1x, hx), bmul2(e1y, hy)), bmul2(e1z, hz));
+  const float a0 = surf::blo(a), a1 = surf::bhi(a);
+  const unsigned f = kExact ? surf::bpack2(1.0f / a0, 1.0f / a1)
+                            : surf::bpack2(surf::rcp_in_range(a0), surf::rcp_in_range(a1));
+  const unsigned sx = bsub2(r.ox, v0x);
+  const unsigned sy = bsub2(r.oy, v0y);
+  const unsigned sz = bsub2(r.oz, v0z);
+  u = bmul2(f, badd2(badd2(bmul2(sx, hx), bmul2(sy, hy)), bmul2(sz, hz)));
+  const unsigned qx = bsub2(bmul2(sy, e1z), bmul2(sz, e1y));
+  const unsigned qy = bsub2(bmul2(sz, e1x), bmul2(sx, e1z));
+  const unsigned qz = bsub2(bmul2(sx, e1y), bmul2(sy, e1x));
+  v = bmul2(f, badd2(badd2(bmul2(r.dx, qx), bmul2(r.dy, qy)), bmul2(r.dz, qz)));
+  t = bmul2(f, badd2(badd2(bmul2(e2x, qx), bmul2(e2y, qy)), bmul2(e2z, qz)));
+}
+
+// mt_hit_bf16's compares of one record (f32, u + v an f32 add) and the
+// strictly-closer update of (best_t, best_pos).
+__device__ __forceinline__ void update_bf16(float a, float u, float v, float t, int pos,
+                                            float& best_t, int& best_pos) {
+  if ((fabsf(a) >= surf::kEps) & (u >= 0.0f) & (u <= 1.0f) & (v >= 0.0f) &
+      (u + v <= 1.0f) & (t >= surf::kEps) & (t < best_t)) {
+    best_t = t;
+    best_pos = pos;
+  }
+}
+
+// The tests of record pair p of a staged row, record 2p's update first;
+// returns whether some |a| is out of the in-range reciprocal's range.
+template <bool kExact>
+__device__ __forceinline__ bool pair_tests(const uint4* row, int p, const RayBf2& ray,
+                                           int pos0, float& best_t, int& best_pos) {
+  const uint4 q0 = row[3 * p], q1 = row[3 * p + 1], q2 = row[3 * p + 2];
+  const unsigned w[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+  unsigned a, u, v, t;
+  mt_pair_bf16x2<kExact>(w, ray, a, u, v, t);
+  const float a0 = surf::blo(a), a1 = surf::bhi(a);
+  update_bf16(a0, surf::blo(u), surf::blo(v), surf::blo(t), pos0 + 2 * p, best_t, best_pos);
+  update_bf16(a1, surf::bhi(u), surf::bhi(v), surf::bhi(t), pos0 + 2 * p + 1, best_t,
+              best_pos);
+  return (fabsf(a0) >= surf::kInRangeMax) | (fabsf(a1) >= surf::kInRangeMax);
+}
+
+template <bool kCarry>
+__global__ void __launch_bounds__(kThreads)
+leaf_rows_bf16_live_kernel(const float* __restrict__ table, int table_rows,
+                           const int* __restrict__ lists, int cap,
+                           const int* __restrict__ n_rows,
+                           const float* __restrict__ rays, int n_rays, int block_rays,
+                           int split_rows, const float* __restrict__ t_in,
+                           const int* __restrict__ r_in, const float* __restrict__ u_in,
+                           const float* __restrict__ v_in, float* __restrict__ t_out,
+                           int* __restrict__ r_out, float* __restrict__ u_out,
+                           float* __restrict__ v_out, unsigned long long* __restrict__ keys,
+                           unsigned* __restrict__ arrivals) {
+  __shared__ uint4 staged[kChunk * kRowQuads];
+  __shared__ int live_lane[kThreads];
+  __shared__ int warp_live[kThreads / 32];
+  __shared__ bool last;
+
+  const LiveBlock b = live_block(n_rows, table_rows, block_rays, split_rows);
+  if (static_cast<int>(blockIdx.y) >= b.parts) return;
+
+  const size_t stride = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
+  const size_t first = b.first;
+  const float* start_t = kCarry ? t_in : rays + 6 * stride;
+  const int n_live = compact_live(
+      start_t + first, b.slices, b.slice, b.slice == 0 && blockIdx.y == 0, live_lane,
+      warp_live, [&](int lane, float t0) {
+        write_start<kCarry>(first + lane, t0, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
+      });
+  const int lo_rank = b.slice * kThreads;
+  if (n_live <= lo_rank) return;
+  __syncthreads();
+
+  const int wid = threadIdx.x >> 5;
+  const bool has_ray = lo_rank + static_cast<int>(threadIdx.x) < n_live;
+  const bool warp_has = lo_rank + wid * 32 < n_live;
+  const size_t ray = has_ray ? first + live_lane[threadIdx.x] : first;
+  const float ox = surf::bf16(rays[ray]);
+  const float oy = surf::bf16(rays[stride + ray]);
+  const float oz = surf::bf16(rays[2 * stride + ray]);
+  const float dx = surf::bf16(rays[3 * stride + ray]);
+  const float dy = surf::bf16(rays[4 * stride + ray]);
+  const float dz = surf::bf16(rays[5 * stride + ray]);
+  const RayBf2 ray2{surf::bpack2(ox, ox), surf::bpack2(oy, oy), surf::bpack2(oz, oz),
+                    surf::bpack2(dx, dx), surf::bpack2(dy, dy), surf::bpack2(dz, dz)};
+  const float t0 = start_t[ray];
+  float best_t = t0;
+  int best_pos = -1;
+
+  const float4* table4 = reinterpret_cast<const float4*>(table);
+  const int* list = lists + static_cast<size_t>(b.list_id) * cap;
+  __nv_bfloat16* halves = reinterpret_cast<__nv_bfloat16*>(staged);
+  const int lo = blockIdx.y * split_rows;
+  const int hi = min(b.count, lo + split_rows);
+  for (int base = lo; base < hi; base += kChunk) {
+    const int m = min(kChunk, hi - base);
+    __syncthreads();  // every thread is done with the previous chunk
+    // Item i of a row: record i / 3, its float4 i % 3 (lanes 0-11; 9-11
+    // are not staged), each lane rounded to bf16 into its pair's word.
+    for (int i = threadIdx.x; i < m * kTris * 3; i += kThreads) {
+      const int k = i / (kTris * 3), j = i / 3 % kTris, part = i % 3;
+      const int row = b.sweep ? base + k : list[base + k];
+      const float4 x = table4[static_cast<size_t>(row) * (kLane / 4) + j * 4 + part];
+      __nv_bfloat16* word = halves + 2 * (k * kRowQuads * 4 + (j / 2) * kPairWords +
+                                          part * 4) + (j & 1);
+      word[0] = __float2bfloat16_rn(x.x);
+      if (part < 2) {
+        word[2] = __float2bfloat16_rn(x.y);
+        word[4] = __float2bfloat16_rn(x.z);
+        word[6] = __float2bfloat16_rn(x.w);
+      }
+    }
+    __syncthreads();
+    if (!warp_has) continue;  // a warp without rays only keeps the barriers
+    for (int k = 0; k < m; ++k) {
+      const uint4* row = staged + k * kRowQuads;
+      const int pos0 = (base + k) * kTris;
+      const float row_t = best_t;
+      const int row_pos = best_pos;
+      bool wide = false;
+#pragma unroll
+      for (int p = 0; p < kTris / 2; ++p)
+        wide |= pair_tests<false>(row, p, ray2, pos0, best_t, best_pos);
+      if (wide) {  // a determinant out of the in-range reciprocal's range
+                   // (never in a real scene): the row again with 1 / a
+        best_t = row_t;
+        best_pos = row_pos;
+#pragma unroll 1
+        for (int p = 0; p < kTris / 2; ++p)
+          pair_tests<true>(row, p, ray2, pos0, best_t, best_pos);
+      }
+    }
+  }
+
+  // The merge: key = ~(t bits << 32 | position); 0 = no hit.
+  unsigned long long key = 0;
+  if (has_ray && best_t < t0)
+    key = ~((static_cast<unsigned long long>(__float_as_uint(best_t)) << 32) |
+            static_cast<unsigned>(best_pos));
+  if (!merge_splits(key, has_ray, keys + ray, &arrivals[blockIdx.x], b.parts, &last)) return;
+  if (!has_ray) return;
+  if (key == 0) {
+    write_start<kCarry>(ray, t0, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
+    return;
+  }
+  const unsigned long long k = ~key;
+  const int pos = static_cast<int>(k & 0xffffffffu);
+  const int p = pos / kTris;
+  const int row = b.sweep ? p : list[p];
+  const float4* rec = table4 + static_cast<size_t>(row) * (kLane / 4) + (pos % kTris) * 4;
+  const float4 x = rec[0], y = rec[1], c = rec[2];
+  using surf::bf16;
+  float t, u, v;
+  surf::mt_hit_bf16(bf16(x.x), bf16(x.y), bf16(x.z), bf16(x.w), bf16(y.x), bf16(y.y),
+                    bf16(y.z), bf16(y.w), bf16(c.x), ox, oy, oz, dx, dy, dz, CUDART_INF_F, t,
+                    u, v);
+  t_out[ray] = __uint_as_float(static_cast<unsigned>(k >> 32));
+  r_out[ray] = __float_as_int(c.y);
+  u_out[ray] = u;
+  v_out[ray] = v;
+}
+
+// The grid of the live kernels (leaf_rows_live_kernel,
+// leaf_rows_bf16_live_kernel; one signature): (lists x slices, splits), the
+// splits from max(cap, table_rows), which bounds every list's rows.
+template <class Kernel>
+int launch_live(Kernel kernel, const float* table, int table_rows, const int* lists, int cap,
                 const int* n_rows, const float* rays, int n_rays, int block_rays,
-                int split_rows, float* t, int* r, float* u, float* v,
+                int split_rows, const float* t_in, const int* r_in, const float* u_in,
+                const float* v_in, float* t, int* r, float* u, float* v,
                 unsigned long long* keys, unsigned* arrivals, cudaStream_t stream) {
   if (split_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int splits = (max(cap, table_rows) + split_rows - 1) / split_rows;
   const dim3 grid(n_rays / kThreads, max(1, splits));
-  leaf_rows_live_kernel<kAny><<<grid, kThreads, 0, stream>>>(
-      table, table_rows, lists, cap, n_rows, rays, n_rays, block_rays, split_rows,
-      t, r, u, v, keys, arrivals);
+  kernel<<<grid, kThreads, 0, stream>>>(table, table_rows, lists, cap, n_rows, rays, n_rays,
+                                        block_rays, split_rows, t_in, r_in, u_in, v_in, t, r,
+                                        u, v, keys, arrivals);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The packed ops alone, for the tests: out[i] = a[i] op b[i] on bf16x2
+// words (op 0 mul, 1 add, 2 sub), one word a thread.
+__global__ void bf16x2_probe_kernel(int op, const unsigned* __restrict__ a,
+                                    const unsigned* __restrict__ b, unsigned* __restrict__ out,
+                                    int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = op == 0 ? surf::bmul2(a[i], b[i]) : op == 1 ? surf::badd2(a[i], b[i])
+                                                       : surf::bsub2(a[i], b[i]);
 }
 
 }  // namespace
@@ -506,9 +808,11 @@ extern "C" int leaf_rows_threads_per_block() { return kThreads; }
 SURF_LEAF_ROWS_ENTRY(leaf_rows_closest_pr1, kMT, false, false, false, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_any_pr1, kMT, false, false, false, true)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_carry_closest, kMT, false, false, true, false)
-// Möller–Trumbore in bf16 (h), without and with carry-in.
-SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_bf16_closest, kMT, false, true, false, false)
-SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_bf16_carry_closest, kMT, false, true, true, false)
+// Möller–Trumbore in bf16 (h), without and with carry-in: the first
+// design (reached only to time it beside leaf_rows_mt_bf16_closest and
+// leaf_rows_mt_bf16_carry_closest).
+SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_bf16_closest_pr4, kMT, false, true, false, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_bf16_carry_closest_pr4, kMT, false, true, true, false)
 // Möller–Trumbore with the ILP merge (i).
 SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_ilp_closest, kMT, true, false, false, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_ilp_carry_closest, kMT, true, false, true, false)
@@ -518,29 +822,48 @@ SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_carry_closest, kBW, false, false, true, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_ilp_closest, kBW, true, false, false, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_ilp_carry_closest, kBW, true, false, true, false)
 
-// Möller–Trumbore, f32, sequential, through leaf_rows_live_kernel: closest
-// hit and the any-hit trim (bitsru8, bits, bits8; bitsp's overflow
-// fallback).  The arguments of the entry points above without the carry-in,
-// and: split_rows (K, > 0), the rows of a split; keys, [n_rays] 64-bit
-// words, and arrivals, [n_rays / 256] 32-bit words, the merge's scratch,
-// all zero before the launch and left all zero after it (one stream at a
-// time).
-#define SURF_LEAF_ROWS_LIVE_ENTRY(name, any)                                      \
-  extern "C" int name(const float* table, int table_rows, const int* lists,       \
-                      int cap, const int* n_rows, const float* rays, int n_rays,  \
-                      int block_rays, int split_rows, float* t, int* r, float* u, \
-                      float* v, unsigned long long* keys, unsigned* arrivals,     \
-                      cudaStream_t stream) {                                      \
-    return launch_live<any>(table, table_rows, lists, cap, n_rows, rays, n_rays,  \
-                            block_rays, split_rows, t, r, u, v, keys, arrivals,   \
-                            stream);                                              \
+// The live kernels.  The arguments of the entry points above, and:
+// split_rows (K, > 0), the rows of a split, after block_rays; keys, [n_rays]
+// 64-bit words, and arrivals, [n_rays / 256] 32-bit words, the merge's
+// scratch, all zero before the launch and left all zero after it (one
+// stream at a time).
+#define SURF_LEAF_ROWS_LIVE_ENTRY(name, kernel)                                      \
+  extern "C" int name(const float* table, int table_rows, const int* lists,         \
+                      int cap, const int* n_rows, const float* rays, int n_rays,    \
+                      int block_rays, int split_rows, const float* t_in,            \
+                      const int* r_in, const float* u_in, const float* v_in,        \
+                      float* t, int* r, float* u, float* v, unsigned long long* keys, \
+                      unsigned* arrivals, cudaStream_t stream) {                    \
+    return launch_live(kernel, table, table_rows, lists, cap, n_rows, rays, n_rays, \
+                       block_rays, split_rows, t_in, r_in, u_in, v_in, t, r, u, v,  \
+                       keys, arrivals, stream);                                     \
   }
 
-SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_closest, false)
-SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_any, true)
+// Möller–Trumbore, f32, sequential, through leaf_rows_live_kernel: closest
+// hit and the any-hit trim (bitsru8, bits, bits8; bitsp's overflow
+// fallback).
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_closest, leaf_rows_live_kernel<false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_any, leaf_rows_live_kernel<true>)
+// Möller–Trumbore in bf16, sequential, through leaf_rows_bf16_live_kernel:
+// without and with carry-in (bitsh; bits2h's round B).
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_mt_bf16_closest, leaf_rows_bf16_live_kernel<false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_mt_bf16_carry_closest, leaf_rows_bf16_live_kernel<true>)
 
-// The kernel each of the two designs' entry points launches (entry.cuh).
+// bf16x2_probe_kernel on n words (op 0 mul, 1 add, 2 sub).
+extern "C" int leaf_rows_bf16x2_probe(int op, const unsigned* a, const unsigned* b,
+                                      unsigned* out, int n, cudaStream_t stream) {
+  if (op < 0 || op > 2 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  bf16x2_probe_kernel<<<(n + 255) / 256, 256, 0, stream>>>(op, a, b, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel each of the designs' entry points launches (entry.cuh).
 SURF_KERNEL_OF(leaf_rows_closest, leaf_rows_live_kernel<false>)
 SURF_KERNEL_OF(leaf_rows_any, leaf_rows_live_kernel<true>)
 SURF_KERNEL_OF(leaf_rows_closest_pr1, leaf_rows_kernel<kMT, false, false, false, false>)
 SURF_KERNEL_OF(leaf_rows_any_pr1, leaf_rows_kernel<kMT, false, false, false, true>)
+SURF_KERNEL_OF(leaf_rows_mt_bf16_closest, leaf_rows_bf16_live_kernel<false>)
+SURF_KERNEL_OF(leaf_rows_mt_bf16_carry_closest, leaf_rows_bf16_live_kernel<true>)
+SURF_KERNEL_OF(leaf_rows_mt_bf16_closest_pr4, leaf_rows_kernel<kMT, false, true, false, false>)
+SURF_KERNEL_OF(leaf_rows_mt_bf16_carry_closest_pr4,
+               leaf_rows_kernel<kMT, false, true, true, false>)

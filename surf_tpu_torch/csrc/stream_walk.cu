@@ -19,11 +19,13 @@
 // resolve the cursor from their N votes after one barrier.
 //
 // Design: one block per packet (ilvN: per N packets), the function the TPU
-// kernel computes.  skip2 / ilvN run stream_walk_ilv.cu's kernel and specN
-// / specbN stream_walk_spec.cu's (one packet a work item over a cluster);
-// their first designs, below, stay as the entry points
+// kernel computes.  skip, skip2 and ilvN run stream_walk_ilv.cu's kernel
+// (skip is ilv1's function) and specN / specbN stream_walk_spec.cu's (one
+// packet a work item over a cluster); their first designs, below, stay as
+// the entry points stream_walk_skip_{closest,any} and
 // stream_walk_{ilv,spec,specb}_{closest,any}_pr5, which only the timing in
-// chip_smoke.py and the CUDA tests reach.  kThreads threads hold block_rays / kThreads
+// chip_smoke.py and the CUDA tests reach (accel/stream_walk.py
+// stream_walk_skip_pr3, stream_walk_ilv_pr5, stream_walk_spec_pr5).  kThreads threads hold block_rays / kThreads
 // rays each (a 2048-ray packet exceeds 1024 threads).  The packet's cursor is the
 // same in every thread: each thread reads the visited row from device
 // memory at the same addresses as float4 loads (a broadcast in L1), tests

@@ -1,9 +1,10 @@
-// The interleaved skip walk, algo="skip2" and "ilvN" (N = 1..4): the entry
-// points stream_walk_ilv_closest and stream_walk_ilv_any.
+// The interleaved skip walk, algo="skip2" and "ilvN" (N = 1..4), and the
+// skip walk itself, algo="skip" (ilv1's function): the entry points
+// stream_walk_ilv_closest and stream_walk_ilv_any.
 //
 // Replaces surf_tpu/accel/pallas_wide.py `_kernel_multiblock` with its walks
-// `_walk_block_pair` (skip2) and `_walk_block_multi` (ilvN), closest hit and
-// any-hit.  The TPU kernel walks N packets side by side in one program, so
+// `_walk_block_pair` (skip2), `_walk_block_multi` (ilvN) and `_walk_block`
+// (skip), closest hit and any-hit.  The TPU kernel walks N packets side by side in one program, so
 // that one packet's vector work hides another's fetch -> reduce -> cursor
 // chain; each packet keeps its own cursor, and its result and visit counts
 // are the skip walk's (`_walk_block` / `_make_skip_visit`).  N names the
@@ -252,7 +253,7 @@ int launch(const float* stream, int n_entries, const float* rays, const int* act
 // Plain C entry points for ctypes, the arguments of stream_walk.cu's: stream
 // is [n_entries, 128]; rays is [7, n_rays] (ox, oy, oz, dx, dy, dz, t_max);
 // act is [n_rays]; n_rays is a positive multiple of block_rays (512, 1024
-// or 2048); arg is N of ilvN (1..4, skip2 is 2); visits is [n_rays /
+// or 2048); arg is N of ilvN (1..4, skip2 is 2, skip 1); visits is [n_rays /
 // block_rays, 3].  Return cudaGetLastError() after the launch, or the error
 // that kept it from launching.
 extern "C" int stream_walk_ilv_closest(const float* stream, int n_entries, const float* rays,

@@ -111,18 +111,10 @@ def _bf(x):
     return b.astype(np.uint32).view(f32)
 
 
-def test_bitsh_matches_jax_and_its_formula(scenes, rays):  # noqa: F811
-    _, wt, ts = scenes
-    o, d, tmax, act = rays
-    got = _port(ts, o, d, tmax, act, "bitsh")
-    want = _jax(wt, o, d, tmax, act, "bitsh")
-    agree = got[0] == want[0]
-    assert agree.mean() >= 0.995
-    both = agree & (got[0] >= 0)
-    assert both.mean() > 0.5
-    np.testing.assert_allclose(got[1][both], want[1][both], rtol=1e-2)
-
-    # the port's t, u, v are _mt8's expression with every op rounded to bf16
+def assert_bf16_formula(ts, o, d, got):
+    """The port's t, u, v at its hits are _mt8's expression with every op
+    rounded to bf16 (round to nearest even), evaluated with NumPy at the
+    winning record."""
     hit = got[0] >= 0
     r = _bf(_winning_records(ts.trace, ts.trace.ltab, got[0][hit]))
     ox, oy, oz = _bf(o[hit]).T
@@ -145,6 +137,19 @@ def test_bitsh_matches_jax_and_its_formula(scenes, rays):  # noqa: F811
     t = _bf(f * dot3(e2x, e2y, e2z, qx, qy, qz))
     for x, y in zip((t, u, v), got[1:]):
         assert np.array_equal(x, y[hit])
+
+
+def test_bitsh_matches_jax_and_its_formula(scenes, rays):  # noqa: F811
+    _, wt, ts = scenes
+    o, d, tmax, act = rays
+    got = _port(ts, o, d, tmax, act, "bitsh")
+    want = _jax(wt, o, d, tmax, act, "bitsh")
+    agree = got[0] == want[0]
+    assert agree.mean() >= 0.995
+    both = agree & (got[0] >= 0)
+    assert both.mean() > 0.5
+    np.testing.assert_allclose(got[1][both], want[1][both], rtol=1e-2)
+    assert_bf16_formula(ts, o, d, got)
 
     bits = _port(ts, o, d, tmax, act, "bits")
     port_agree = (got[0] == bits[0]).mean()

@@ -1,6 +1,7 @@
-"""The hand-written kernels (leaf rows with every entry point, instanced leaf
+"""The hand-written kernels (leaf rows with every entry point and the first
+designs of the f32 and bf16 pairs, the packed bf16x2 ops, instanced leaf
 rows, the stream walks with the TPU schedules and the first designs of
-ilvN and specN / specbN, the binary walk, the dependent-cursor, leaf-row,
+skip, ilvN and specN / specbN, the binary walk, the dependent-cursor, leaf-row,
 walk-visit, visit-shape, matrix-unit and op-cost microbenchmarks) against
 their plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
@@ -14,6 +15,7 @@ must agree bit for bit; the matrix-unit kernels' tensor-core dots are
 held by their gates (micro/_mxu.py MXU_GATE, BF16_GATE).
 """
 
+import ctypes
 from unittest import mock
 
 import numpy as np
@@ -23,8 +25,9 @@ import torch
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced, stream,
                                   stream_walk)
 from surf_tpu_torch.accel import leaf_rows as leaf_rows_mod
-from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, LAUNCHES, leaf_rows, leaf_rows_plain,
-                                            leaf_rows_pr1, reset_launches)
+from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, FIRST_DESIGNS, LAUNCHES, leaf_rows,
+                                            leaf_rows_first_design, leaf_rows_plain,
+                                            reset_launches)
 from surf_tpu_torch.micro import (_mxu, cond_visit, dep_chain, lane_extract, lane_splat,
                                   leaf_groups, leaf_visit, mask_reduce, mxu_parts, mxu_pltd,
                                   mxu_tiles, quant_visit, spec_visit, stack_visit, visit_bodies,
@@ -36,7 +39,7 @@ from surf_tpu_torch.wavefront.integrator import (RenderConfig, initial_seeds,
                                                  render_frame_seeded)
 
 import test_torch_spec_split as spec_split
-from leaf_split_data import adversarial
+from leaf_split_data import adversarial, bf16_pairs, bf16_ties, carry_starts
 
 pytestmark = pytest.mark.cuda
 
@@ -141,7 +144,7 @@ def test_live_kernel_matches_plain_on_adversarial_data(cuda, trim, live_share, s
     with mock.patch.object(leaf_rows_mod, "split_rows", lambda n: split_rows):
         got = leaf_rows(*args)
     assert LAUNCHES[name] == 1
-    old = leaf_rows_pr1(*args)
+    old = leaf_rows_first_design(*args)
     assert LAUNCHES[name + "_pr1"] == 1
     want = leaf_rows_plain(*args)
     torch.cuda.synchronize()
@@ -165,7 +168,7 @@ def test_live_kernel_matches_plain_on_indoor_packets(indoor, cuda, mode, live_sh
                                        cap_rows=8 if mode == "sweep" else 0)
     args = (indoor.trace.ltab, lists, n_rows, rays, 2048, mode == "any_hit")
     got = leaf_rows(*args)
-    old = leaf_rows_pr1(*args)
+    old = leaf_rows_first_design(*args)
     want = leaf_rows_plain(*args)
     torch.cuda.synchronize()
     _bits_equal(got, want)
@@ -210,6 +213,112 @@ def test_variant_matches_plain_bit_exact(indoor, cuda, name, mode):
         for g, w in zip(got, whole):
             assert torch.equal(g, w)
     assert (got[1][2048:4096] == -1).all() and (got[1] >= 0).any()
+
+
+BF16 = ("leaf_rows_mt_bf16_closest", "leaf_rows_mt_bf16_carry_closest")
+
+
+def _bf16_calls(table, lists, n_rows, rays, R, carry):
+    """(args, kw) of a bf16 call, without carry or resuming after round A's
+    first 8 rows (sweeps whole in round A), and the one-call result."""
+    kw = dict(precision="bf16")
+    if not carry:
+        return (table, lists, n_rows, rays, R), kw, None
+    whole = leaf_rows(table, lists, n_rows, rays, R, **kw)
+    n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=8)).to(torch.int32)
+    kw["carry"] = leaf_rows(table, lists, n_a, rays, R, **kw)
+    n_b = torch.where(n_rows < 0, 0, (n_rows - 8).clamp(min=0)).to(torch.int32)
+    return (table, lists[:, 8:].contiguous(), n_b, rays, R), kw, whole
+
+
+def _bf16_matches(args, kw, whole):
+    """The bf16 entry point against the plain version and its first design
+    (_pr4), bit for bit; one launch each; the merge's scratch left zero; a
+    carry-in call equal to the one-call result."""
+    name = BF16[int("carry" in kw)]
+    reset_launches()
+    got = leaf_rows(*args, **kw)
+    old = leaf_rows_first_design(*args, **kw)
+    want = leaf_rows_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 1 and LAUNCHES[FIRST_DESIGNS[name]] == 1
+    assert sum(LAUNCHES.values()) == 2
+    _bits_equal(got, want)
+    _bits_equal(old, want)
+    if whole is not None:
+        _bits_equal(got, whole)
+    for x in leaf_rows_mod._SCRATCH[torch.device("cuda", torch.cuda.current_device())]:
+        assert not bool(x.any())
+    return got
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["no_carry", "carry"])
+@pytest.mark.parametrize("block", [512, 1024, 2048])
+@pytest.mark.parametrize("live_share", LIVE_SHARES)
+@pytest.mark.parametrize("lists", [1, 4, 128])
+def test_bf16_kernel_matches_plain_and_pr4(indoor, cuda, lists, live_share, block, carry):
+    """leaf_rows_mt_bf16_closest / _carry_closest (compaction, row splits,
+    the (t, position) merge, packed bf16x2 arithmetic) on the indoor
+    scene's lists, 1-128 lists of 512-2048 rays at three live shares, and a
+    sweep where a list overflows 64 rows."""
+    n = lists * block
+    o, d, _ = _rays(max(n, 4096), seed=8, device=cuda)
+    o, d = o[:n], d[:n]
+    act = (torch.rand(n, generator=torch.Generator().manual_seed(9)) < live_share).to(cuda)
+    tmax = torch.full((n,), 1e30, device=cuda)
+    rays, lst, n_rows = bits.prepare(indoor.trace, o, d, tmax, act, block, cap_rows=64)
+    got = _bf16_matches(*_bf16_calls(indoor.trace.ltab, lst, n_rows, rays, block, carry))
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("carry", [False, True], ids=["no_carry", "carry"])
+@pytest.mark.parametrize("split_rows", [1, 16, 32])
+@pytest.mark.parametrize("live_share", LIVE_SHARES)
+@pytest.mark.parametrize("data", ["adversarial", "ties"])
+def test_bf16_kernel_on_adversarial_and_tie_data(cuda, data, live_share, split_rows, carry):
+    """The same on leaf_split_data's adversarial lists (|det| past 2^126,
+    inert rows, 0-row lists, a sweep, an all-dead packet, dead and barely
+    live t_max) and on its bf16 tie set (equal bf16 t at two positions
+    within a pair, a row, across rows and across a split boundary: the
+    first position wins), with carry-in start t at the liveness rule's
+    edges (1e-5, 0, NaN, -inf dead; +inf, 1.00001e-5 live)."""
+    make = adversarial if data == "adversarial" else bf16_ties
+    table, lists, n_rows, rays, R = (x.to(cuda) if torch.is_tensor(x) else x
+                                     for x in make(seed=3, live_share=live_share))
+    args, kw, whole = _bf16_calls(table, lists, n_rows, rays, R, carry)
+    if carry:
+        kw["carry"] = carry_starts(*kw["carry"], seed=split_rows)
+        whole = None
+    with mock.patch.object(leaf_rows_mod, "split_rows", lambda n: split_rows):
+        _bf16_matches(args, kw, whole)
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_bf16x2_ops_round_as_the_plain_version(cuda, op):
+    """mul / add / sub.rn.bf16x2 through the probe kernel
+    (leaf_rows_bf16x2_probe: csrc/mt.cuh's bmul2, badd2, bsub2 alone, one
+    bf16x2 word a thread) equal the f32 op rounded to bf16 (the plain
+    version's) bit for bit, on random bit patterns over every exponent,
+    subnormals, ties, +-0, overflow and inf; a NaN comes out as a NaN (its
+    payload may differ)."""
+    x, y = bf16_pairs(4096, seed=len(op))
+    probe = _build.library().leaf_rows_bf16x2_probe
+    p, i = ctypes.c_void_p, ctypes.c_int
+    probe.argtypes = [i, p, p, p, i, p]  # op, a, b, out, n words, stream
+    probe.restype = i
+    a = x.to(cuda).view(torch.int32)
+    b = y.to(cuda).view(torch.int32)
+    out = torch.empty_like(a)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(cuda).cuda_stream)
+    assert probe(("mul", "add", "sub").index(op), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 a.numel(), stream) == 0
+    got = out.view(torch.bfloat16).cpu()
+    xf, yf = x.float(), y.float()
+    want = {"mul": xf * yf, "add": xf + yf, "sub": xf - yf}[op].to(torch.bfloat16)
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+    assert (want[~nan].float().abs() < 2.0 ** -126).any()
 
 
 @pytest.mark.parametrize("record", ["mt", "bw"])
@@ -327,9 +436,14 @@ def test_stream_walk_matches_plain_bit_exact(indoor, cuda, algo, any_hit):
     got = stream_walk.stream_walk(*args)
     want = stream_walk.stream_walk_plain(*args)
     torch.cuda.synchronize()
-    assert stream_walk.LAUNCHES[f"stream_walk_{algo}_{'any' if any_hit else 'closest'}"] == 1
+    walk = "ilv" if algo == "skip" else algo  # skip runs the ilv kernel (ilv1)
+    assert stream_walk.LAUNCHES[f"stream_walk_{walk}_{'any' if any_hit else 'closest'}"] == 1
+    assert sum(stream_walk.LAUNCHES.values()) == 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if algo == "skip":  # and equals the first design, the skip kernel
+        for g, w in zip(stream_walk.stream_walk_skip_pr3(*args[:4], any_hit), want):
+            assert torch.equal(g, w)
     visits = got[4]
     assert visits.shape == (4, 3) and visits[1].tolist() == [0, 0, 0]
     assert (visits[[0, 2, 3], 1] > 0).all() and (got[1][2048:4096] == -1).all()
@@ -379,7 +493,7 @@ def test_schedule_matches_plain_bit_exact(indoor, cuda, algo, any_hit, block):
     assert visits.shape == (5, 3) and visits[1].tolist() == [0, 0, 0]
     assert (got[1][block:2 * block] == -1).all() and (got[1][2 * block:3 * block] >= 0).all()
     if walk == "ilv":
-        skip = stream_walk.stream_walk(*args[:4], "skip", *args[5:])
+        skip = stream_walk.stream_walk_skip_pr3(*args[:4], any_hit)
         for g, w in zip(got, skip):
             assert torch.equal(g, w)
 
@@ -413,7 +527,7 @@ def test_ilv_kernel_matches_plain_and_skip(indoor, cuda, packets, live, any_hit)
     rays, a = _ilv_rays(cuda, packets, live, any_hit)
     base = (indoor.stream.stream, rays, a, 2048)
     want = stream_walk.stream_walk_plain(*base, "skip", any_hit)
-    skip = stream_walk.stream_walk(*base, "skip", any_hit)
+    skip = stream_walk.stream_walk_skip_pr3(*base, any_hit)
     for g, w in zip(skip, want):
         assert torch.equal(g, w)
     mode = "any" if any_hit else "closest"
