@@ -19,11 +19,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the phase fails; each set timed new against the first design, in
      turns, with its bound and live share; the SASS instructions a record
      test of both designs and their ptxas registers;
-  3b. inst kernel: the instanced leaf-row kernel against its plain version
-     on the pure two-level stress scene (32 instances, 512x512 primary
-     rays and one bounce's rays, 2048-ray packets, one all-dead packet):
-     closest, any-hit (t_max 16 primary, 4 bounce) and per-instance sweeps
-     (inst_cap=8), with the same gates;
+  3b. inst kernel: the instanced leaf-row kernel (inst_rows_closest,
+     inst_rows_any: live compaction, row splits across the packet's
+     segments, the (t, position) merge) and its first design
+     (inst_rows_first_design: the _pr2 entry points) against the plain
+     version on the pure two-level stress scene (32 instances, 512x512
+     primary rays and one bounce's rays, 2048-ray packets, one all-dead
+     packet): closest, any-hit (t_max 16 primary, 4 bounce) and
+     per-instance sweeps (inst_cap=8), bit-identical or the phase fails;
+     the two timed in turns; the SASS instructions a record test of both;
   3c. stream walks: the skip and stack walks against their plain versions
      on the indoor scene's 8-wide stream, primary and one bounce's rays at
      512x512, 2048-ray packets, one all-dead packet, closest and any-hit
@@ -34,7 +38,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      each row the plain version visits.  algo="skip" runs the ilv kernel
      (stream_walk_ilv_*, ilv1); the skip kernel (stream_walk_skip_*) is its
      first design, reached by stream_walk_skip_pr3, held to the same gates
-     and timed in turns with the routed walk (the kernels line's skip rows);
+     and timed in turns with the routed walk (the kernels line's skip rows).
+     algo="stack" runs the cluster stack kernel (stream_walk_stack.cu), and
+     its first design (stream_walk_stack_pr3: the _pr3 entry points) is
+     held bit-identical too and timed in turns with it;
   3d. binary walk: the binary-BVH walk kernel against its plain version on
      the same rays in 1024-ray packets, the same way;
   4. bench: the bench config (bench.py: indoor scene, 512x512 @ 16 spp as
@@ -56,9 +63,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      within 1%);
   4c. capacity: the 200-instance stress scene (202 instances, 256,014
      effective triangles), pure two-level, 256x256 @ 1 spp: a finite,
-     non-negative image with positive energy, and the instanced kernel
-     against its plain version on one bounce's rays (closest and any-hit),
-     with the gates of 3b;
+     non-negative image with positive energy, and the instanced kernel and
+     its first design against the plain version on one bounce's rays
+     (closest and any-hit), bit-identical as in 3b;
   5. parity: 64x64 @ 2 spp with the bench knobs through the leaf-row kernel
      and through its plain version on the card (energy within 1%, relative
      L1 under 3%; bit equality expected);
@@ -86,6 +93,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      sums a spp; then the SASS of the step loop of both designs (by entry
      name): instructions, packed bf16 instructions and F2F conversions a
      record test, and ptxas registers and spills;
+  3j. stack frame: the inputs of every stream-walk call of an untimed
+     512x512 1-spp stack bench frame (64 calls), captured by a spy: the new
+     stack kernel bit-identical to its first design on every call (visits
+     included) and to the plain version on PLAIN_WAVES, the two
+     timed in turns, with each call's width, live share and visits (and
+     the bound where the plain version ran), the sums a spp, and the SASS
+     instructions a slab and a triangle test of both designs;
+  3k. inst frame: the same for the 64 inst_rows calls of an untimed
+     512x512 1-spp stress32 twolevelp frame: the live kernel bit-identical
+     to its first design on every call and to the plain version on
+     PLAIN_WAVES, timed in turns, with each call's width, live
+     share, rows a packet and bound, and the sums a spp;
   4e. bits benches: one 512x512 @ 8 spp frame at phase 4's seeds through
      each algo of BITS_ALGOS (frame time, rays/s, energy, launches per
      entry point, peak memory): those of EXACT_ALGOS within 0.1% of
@@ -123,7 +142,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      the new one, and their ptxas registers;
   3h. spec frame: the same calls through spec4 and specb8: the new spec
      kernel bit-identical to its first design (visits included) on every
-     call and to the plain version on SPEC_PLAIN_WAVES, timed in turns with
+     call and to the plain version on PLAIN_WAVES, timed in turns with
      the first design and the ilv kernel, bounded by 3g's tests (the skip
      path's; the spec path's own where the plain version runs), the sums
      per spp, and the SASS counts and ptxas registers of both spec designs;
@@ -270,6 +289,10 @@ CARRY_ROWS = bits.BITS_REFINE_ROWS
 F32_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.LIVE_ENTRY_POINTS)
 BF16_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.BF16_ENTRY_POINTS)
 SKIP_FIRST = ("stream_walk_skip_closest", "stream_walk_skip_any")
+# ... and the stack walk's (3c, 3j; stream_walk.stream_walk_stack_pr3) and
+# the instanced rows' (3b, 3k; inst_rows.inst_rows_first_design).
+STACK_FIRST = _build.STACK_PR3_ENTRY_POINTS
+INST_FIRST = tuple(inst_rows.FIRST_DESIGNS.values())
 # Phase 3i: the bf16 frames replayed, and the 1 spp frame's leaf-row calls
 # each (32 waves, closest and shadow; bits2h rounds A and B).
 BF16_FRAMES = {"bitsh": 64, "bits2h": 128}
@@ -304,10 +327,11 @@ SCHEDULES = ("skip2", "ilv2", "ilv4", "spec2", "spec4", "specb4", "specb8")
 SCHEDULE_BENCH = ("skip2", "ilv4", "spec4", "specb8")
 SCHEDULE_PARITY = ("skip2", "ilv2", "spec2", "specb4")
 SCHEDULE_OF = {"ilv": "ilv4", "spec": "spec4", "specb": "specb8"}
-# Phase 3h: the waves of the ilv2 frame that the plain spec walks run on
-# (1.4-1.8 s a call): the first two, full width, and the first and last
-# of the narrow tail.
-SPEC_PLAIN_WAVES = (0, 1, 16, 31)
+# Phases 3h, 3j and 3k: the waves of a replayed frame that the plain
+# version also runs on (1.4-3.4 s a full-width call of the plain spec and
+# stack walks): the first two, full width, and the first and last of the
+# narrow tail.
+PLAIN_WAVES = (0, 1, 16, 31)
 # Phase 6: one plane-form record test, counted from dep_micro.cu: den 5,
 # num 6, the division 1, the hit point 6, u 6, v 6, then |den| and 7
 # compares (u + v's add among them).
@@ -555,31 +579,47 @@ def _new_vs_pr1(args, reps: int, dev: torch.device):
     return ms["new"], ms["pr1"]
 
 
-def _bench_waves(scene, dev, w, h):
-    """The leaf-row calls of one untimed w x h 1-spp bench frame, in order:
-    (wave, closest or any, its inputs), captured by a spy on bits.leaf_rows."""
-    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
-    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+def _spy(module, attr: str, scene, cfg, cam, dev) -> list:
+    """The calls of ``module.attr`` in one untimed 1-spp render of cfg, in
+    order: (args, kw) as the render made them."""
     calls = []
-    real = bits.leaf_rows
+    real = getattr(module, attr)
 
     def spy(*args, **kw):
         calls.append((args, kw))
         return real(*args, **kw)
 
-    with mock.patch.object(bits, "leaf_rows", spy):
+    with mock.patch.object(module, attr, spy):
         _render(scene, cfg, cam, dev, 0, 1)
     _sync(dev)
+    return calls
+
+
+def _by_wave(calls, is_any) -> list:
+    """(wave, closest or any, args) of each call, waves counted apart for the
+    closest-hit and the any-hit calls (``is_any(args)``), which a frame
+    makes as many of."""
     waves, seen = [], {False: 0, True: 0}
-    for args, kw in calls:
-        trim = bool(args[5])
-        if len(args) != 6 or leaf_rows.entry_point(**kw, trim=trim) not in leaf_rows.LIVE_ENTRY_POINTS:
-            raise AssertionError(f"the bench frame called leaf_rows with {len(args)} {kw}")
-        waves.append((seen[trim], "any" if trim else "closest", args))
-        seen[trim] += 1
+    for args, _ in calls:
+        any_hit = bool(is_any(args))
+        waves.append((seen[any_hit], "any" if any_hit else "closest", args))
+        seen[any_hit] += 1
     if seen[False] != seen[True]:
         raise AssertionError(f"{seen[False]} closest calls against {seen[True]} any calls")
     return waves
+
+
+def _bench_waves(scene, dev, w, h):
+    """The leaf-row calls of one untimed w x h 1-spp bench frame, in order:
+    (wave, closest or any, its inputs), captured by a spy on bits.leaf_rows."""
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    calls = _spy(bits, "leaf_rows", scene, cfg, cam, dev)
+    for args, kw in calls:
+        if len(args) != 6 or leaf_rows.entry_point(**kw, trim=bool(args[5])) \
+                not in leaf_rows.LIVE_ENTRY_POINTS:
+            raise AssertionError(f"the bench frame called leaf_rows with {len(args)} {kw}")
+    return _by_wave(calls, lambda args: args[5])
 
 
 def _ptxas_regs() -> dict:
@@ -697,8 +737,34 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
     return out
 
 
+def _inst_bound(table, lists, counts, segs, inv, rays):
+    """(bound ms, what bounds it, tests, live share) of an instanced call:
+    the record tests of its live rays (t_max > 1e-5) against the rows of
+    each listed instance, and one transform a live ray and listed
+    instance."""
+    g = lists.shape[0]
+    rows = torch.where(counts < 0, segs[2][None, :], counts)
+    live = (rays[6] > leaf_rows.EPS).view(g, -1).sum(1)[:, None]
+    tests = float((rows * live).sum()) * 8
+    xf = float(((counts != 0) * live).sum())
+    bound_ms, bound_by = _bound(tests * MT_FLOPS + xf * XF_FLOPS,
+                                _nbytes(table, lists, counts, segs, inv, rays)
+                                + 20 * rays.shape[1])
+    return bound_ms, bound_by, tests, float(live.sum()) / rays.shape[1]
+
+
+def _inst_turns(args, reps: int, dev: torch.device) -> dict:
+    """ms of the live kernel ("new") and the first design ("pr2") on one
+    instanced call, timed in turns."""
+    return _in_turns({"pr2": lambda: inst_rows.inst_rows_first_design(*args),
+                      "new": lambda: inst_rows.inst_rows(*args)}, reps, dev)
+
+
 def phase_inst_kernel(dev: torch.device, w: int = W, h: int = H,
                       n_inst: int = STRESS_N) -> dict:
+    """The two designs of inst_rows_closest / inst_rows_any against the
+    plain version on the stress scene's six sets, bit-identical, timed in
+    turns; then the SASS instructions a record test of both."""
     scene_h = builtin.make_instanced_stress_scene(n_inst)
     scenes = {0: compile_scene(scene_h, dev, two_level="pure"),
               8: compile_scene(scene_h, dev, two_level="pure", inst_cap=8)}
@@ -706,37 +772,36 @@ def phase_inst_kernel(dev: torch.device, w: int = W, h: int = H,
     cfg = wi.RenderConfig.for_scene(ps, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
     cam = CameraParams.from_camera(builtin.make_stress_camera(w, h, n_inst), dev)
     primary, bounce = _first_wave(ps, cfg, cam, dev, w, h)
-    out = {"inst_rows_closest": {"max_abs_err": 0.0}, "inst_rows_any": {"max_abs_err": 0.0}}
+    out = {name: {"max_abs_err": 0.0} for name in (*inst_rows.FIRST_DESIGNS, *INST_FIRST)}
     for label, (o, d, act, tm, any_hit, cap) in _ray_sets(primary, bounce, w * h, dev,
                                                           16.0, 8).items():
         tr = scenes[cap].inst
         rays, lists, counts = instanced.prepare(tr, o, d, tm, act, BLOCK)
         args = (tr.ltab, lists, counts, tr.segs, tr.inv, rays, BLOCK, any_hit)
         got = inst_rows.inst_rows(*args)
+        old = inst_rows.inst_rows_first_design(*args)
         want = inst_rows.inst_rows_plain(*args)
         _sync(dev)
-        bit, err, gate = _compare(got, want)
-        if not (bit or gate):
-            raise AssertionError(f"{label}: instanced kernel disagrees with the plain "
+        if not (_bits_same(got, want) and _bits_same(old, want)):
+            _, err, _ = _compare(got, want)
+            raise AssertionError(f"{label}: an instanced design disagrees with the plain "
                                  f"version (max |dt| {err})")
-        k_ms = _time_ms(lambda: inst_rows.inst_rows(*args), 10, dev)
+        t = _inst_turns(args, 10, dev)
         p_ms = _time_ms(lambda: inst_rows.inst_rows_plain(*args), 2, dev)
-        rows = torch.where(counts < 0, tr.segs[2][None, :], counts)
         pairs = int((counts != 0).sum())
-        live = _active_per_packet(act, lists.shape[0], BLOCK)[:, None]
-        tests = float((rows * live).sum()) * 8
-        xf = float(((counts != 0) * live).sum())  # active rays x listed instances
-        bound_ms, bound_by = _bound(tests * MT_FLOPS + xf * XF_FLOPS,
-                                    _nbytes(*args[:6]) + 20 * rays.shape[1])
-        say(f"[3b inst] {label}: {'bit-identical' if bit else 'within gate'}, "
-            f"max |dt| {err:.3g}, kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+        bound_ms, bound_by, tests, _ = _inst_bound(*args[:6])
+        rows = torch.where(counts < 0, tr.segs[2][None, :], counts)
+        say(f"[3b inst] {label}: bit-identical, kernel {t['new']:.3f} ms, first design "
+            f"{t['pr2']:.3f} ms ({t['pr2'] / t['new']:.2f}x), plain {p_ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms ({bound_by}, {tests:.4g} tests), "
             f"packets {lists.shape[0]}, pairs {pairs} (sweep {int((counts < 0).sum())}), "
             f"mean list {float(rows.sum()) / max(pairs, 1):.1f} rows")
-        rec = out["inst_rows_any" if any_hit else "inst_rows_closest"]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        name = "inst_rows_any" if any_hit else "inst_rows_closest"
         if label in ("bounce/closest", "bounce/any_hit"):
-            rec.update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+            for k, ms in ((name, t["new"]), (inst_rows.FIRST_DESIGNS[name], t["pr2"])):
+                out[k].update(ms=ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if dev.type == "cuda":
+        _leaf_sass(say, (*inst_rows.FIRST_DESIGNS, *INST_FIRST), "3b inst")
     return out
 
 
@@ -802,10 +867,21 @@ def phase_stream_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
                 say(f"[3c stream] skip {label}: routed (stream_walk_ilv_*) {t['new']:.3f} ms, "
                     f"bit-identical; the skip kernel (stream_walk_skip_pr3) {t['pr3']:.3f} ms "
                     f"({t['pr3'] / t['new']:.2f}x)")
-            else:
-                k_ms = _time_ms(lambda: stream_walk.stream_walk(*args), 10, dev)
-                _walk_record(out, name, label, got, want, k_ms, p_ms, work.sum(0).tolist(),
-                             nbytes, "[3c stream]")
+            else:  # the cluster stack walk and its first design in turns
+                first = stream_walk.stream_walk_stack_pr3(*args[:4], any_hit, tr.max_depth)
+                t = _in_turns({"pr3": lambda: stream_walk.stream_walk_stack_pr3(
+                                   *args[:4], any_hit, tr.max_depth),
+                               "new": lambda: stream_walk.stream_walk(*args)}, 10, dev)
+                if not (_bits_same(got, want) and _bits_same(first, want)):
+                    raise AssertionError(f"stack {label}: a stack design differs from the "
+                                         f"plain version")
+                _walk_record(out, name, label, got, want, t["new"], p_ms,
+                             work.sum(0).tolist(), nbytes, "[3c stream]")
+                _walk_record(out, f"{name}_pr3", label, first, want, t["pr3"], p_ms,
+                             work.sum(0).tolist(), nbytes, "[3c stream] first design")
+                say(f"[3c stream] stack {label}: new {t['new']:.3f} ms, first design "
+                    f"(stream_walk_stack_pr3) {t['pr3']:.3f} ms ({t['pr3'] / t['new']:.2f}x), "
+                    f"both bit-identical")
             visits = want[4].sum(0, dtype=torch.int64).tolist()  # rows, leaf rows
             g = want[4].shape[0]
             say(f"[3c stream]   visits per packet: mean {visits[0] / g:.1f} rows "
@@ -953,9 +1029,10 @@ def phase_walk_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
             if k <= 0 and dev.type == "cuda":
                 raise AssertionError(f"{name} was never launched by the {walk} render")
         first = ""
-        if walk == "skip":  # the first design is a yardstick: no frame launches it
-            launches.update({k: counts[k] for k in SKIP_FIRST})
-            first = f" (the skip kernel's {dict((k, counts[k]) for k in SKIP_FIRST)})"
+        yardsticks = {"skip": SKIP_FIRST, "stack": STACK_FIRST}.get(walk, ())
+        if yardsticks:  # the first design is a yardstick: no frame launches it
+            launches.update({k: counts[k] for k in yardsticks})
+            first = f" (the first design's {dict((k, counts[k]) for k in yardsticks)})"
         say(f"[4d walks] {walk}: {w}x{h} @ {spp} spp, frame {dt:.3f} s, "
             f"{w * h * spp / dt:.1f} rays/s, energy {energy!r}, launches {mine}{first}; "
             f"vs bitsru8: {_pixel_gate(ref_img, img, f'{walk} bench frame')}")
@@ -976,9 +1053,12 @@ def phase_twolevelp_bench(dev: torch.device, w: int = W, h: int = H, spp: int = 
     times, img = _timed_frames(ps, cfg, cam, dev, spp, 2)
     launches = dict(inst_rows.LAUNCHES)
     energy = _check_image(img, "twolevelp bench", spp)
-    for name, k in launches.items():
-        if k <= 0 and dev.type == "cuda":
+    for name in inst_rows.FIRST_DESIGNS:
+        if launches[name] <= 0 and dev.type == "cuda":
             raise AssertionError(f"{name} was never launched by the twolevelp render")
+    for name in INST_FIRST:  # the first design is a yardstick: no frame launches it
+        if launches[name] != 0:
+            raise AssertionError(f"the twolevelp render launched {name}")
     peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
     dt = sum(times) / len(times)
     say(f"[4b twolevelp] stress {n_inst} ({len(scene_h.instances)} instances), {w}x{h} "
@@ -1033,14 +1113,15 @@ def phase_capacity(dev: torch.device, w: int = 256, h: int = 256, n_inst: int = 
                                                 act, BLOCK)
         args = (ps.inst.ltab, lists, counts, ps.inst.segs, ps.inst.inv, rays, BLOCK, any_hit)
         got = inst_rows.inst_rows(*args)
+        old = inst_rows.inst_rows_first_design(*args)
         want = inst_rows.inst_rows_plain(*args)
         _sync(dev)
-        bit, errs[name], gate = _compare(got, want)
-        if not (bit or gate):
-            raise AssertionError(f"capacity {name}: instanced kernel disagrees with the "
+        _, errs[name], _ = _compare(got, want)
+        if not (_bits_same(got, want) and _bits_same(old, want)):
+            raise AssertionError(f"capacity {name}: an instanced design disagrees with the "
                                  f"plain version (max |dt| {errs[name]})")
-        say(f"[4c capacity] bounce/{'any_hit' if any_hit else 'closest'} kernel vs plain: "
-            f"{'bit-identical' if bit else 'within gate'}, max |dt| {errs[name]:.3g}, "
+        say(f"[4c capacity] bounce/{'any_hit' if any_hit else 'closest'} kernel and first "
+            f"design vs plain: bit-identical, max |dt| {errs[name]:.3g}, "
             f"packets {lists.shape[0]}, list width {lists.shape[1]}, "
             f"pairs {int((counts != 0).sum())} (sweep {int((counts < 0).sum())})")
     return errs
@@ -1203,17 +1284,7 @@ def _leaf_calls(scene, dev, w, h, algo):
     cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
         **BENCH_KNOBS, algo=algo)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
-    calls = []
-    real = bits.leaf_rows
-
-    def spy(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
-
-    with mock.patch.object(bits, "leaf_rows", spy):
-        _render(scene, cfg, cam, dev, 0, 1)
-    _sync(dev)
-    return calls
+    return _spy(bits, "leaf_rows", scene, cfg, cam, dev)
 
 
 def phase_bf16_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
@@ -1485,26 +1556,11 @@ def _walk_waves(scene, dev, w, h, algo):
     cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
         **BENCH_KNOBS, algo=algo)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
-    calls = []
-    real = stream.stream_walk
-
-    def spy(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
-
-    with mock.patch.object(stream, "stream_walk", spy):
-        _render(scene, cfg, cam, dev, 0, 1)
-    _sync(dev)
-    waves, seen = [], {False: 0, True: 0}
+    calls = _spy(stream, "stream_walk", scene, cfg, cam, dev)
     for args, kw in calls:
         if kw or len(args) != 7 or args[4] != algo:
             raise AssertionError(f"the {algo} frame called stream_walk with {len(args)} {kw}")
-        any_hit = bool(args[5])
-        waves.append((seen[any_hit], "any" if any_hit else "closest", args))
-        seen[any_hit] += 1
-    if seen[False] != seen[True]:
-        raise AssertionError(f"{seen[False]} closest calls against {seen[True]} any calls")
-    return waves
+    return _by_wave(calls, lambda args: args[5])
 
 
 def _walk_sass(say, entries, label: str) -> None:
@@ -1580,18 +1636,19 @@ def phase_ilv_frame(dev: torch.device, waves, reps: int = 5) -> list:
         f"design {total['pr5']:.3f} ms, skip kernel {total['skip']:.3f} ms, bound "
         f"{total['bound']:.3f} ms")
     if dev.type == "cuda":
-        _walk_sass(say, [k for k in _build.WALK_KERNELS if "_spec" not in k], "3g ilv frame")
+        _walk_sass(say, [k for k in _build.WALK_KERNELS if "_spec" not in k and "_stack" not in k],
+                   "3g ilv frame")
     return works
 
 
 def phase_spec_frame(dev: torch.device, waves, works, reps: int = 3) -> None:
     """The same calls (3g's ``waves``) through spec4 and specb8: the new
     design (stream_walk_spec{,b}_{closest,any}) bit-identical to the first
-    design, visits included, and, on SPEC_PLAIN_WAVES, to the plain
+    design, visits included, and, on PLAIN_WAVES, to the plain
     version; timed in turns with the first design and the ilv kernel (the
     frame's own algo).  The bound is 3g's: the tests of live rays along
     the skip walk's path (``works``), since the plain spec walk, at 1.4-1.8
-    s a call, runs on SPEC_PLAIN_WAVES only; there its own tally is printed
+    s a call, runs on PLAIN_WAVES only; there its own tally is printed
     beside it.  Then the SASS counts of both spec designs."""
     for algo in ("spec4", "specb8"):
         total = {"new": 0.0, "pr5": 0.0, "ilv": 0.0, "bound": 0.0}
@@ -1604,7 +1661,7 @@ def phase_spec_frame(dev: torch.device, waves, works, reps: int = 3) -> None:
             if not _bits_same(got, old):
                 raise AssertionError(f"{algo} wave {wave} {kind}: the spec designs disagree")
             plain = ""
-            if wave in SPEC_PLAIN_WAVES:
+            if wave in PLAIN_WAVES:
                 own = torch.zeros(g, 2, dtype=torch.int64, device=dev)
                 want, p_ms = _time_once(lambda: stream_walk.stream_walk_plain(
                     *base, algo, any_hit, depth, work=own), dev)
@@ -1636,6 +1693,103 @@ def phase_spec_frame(dev: torch.device, waves, works, reps: int = 3) -> None:
             f"{total['ilv']:.3f} ms, bound {total['bound']:.3f} ms")
     if dev.type == "cuda":
         _walk_sass(say, [k for k in _build.WALK_KERNELS if "_spec" in k], "3h spec frame")
+
+
+def phase_stack_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
+    """Every stream-walk call of an untimed 1-spp stack bench frame (64: 32
+    waves, closest and shadow rays): the cluster stack kernel
+    (stream_walk_stack_{closest,any}) bit-identical to its first design,
+    visits included, on every call and to the plain version on
+    PLAIN_WAVES (where the plain version's tally gives the bound);
+    the two timed in turns, with each call's width, live share and visits
+    per packet, and the sums a spp.  Then the SASS counts of both."""
+    waves = _walk_waves(compile_scene(builtin.make_indoor_scene(), dev), dev, w, h, "stack")
+    total = {"new": 0.0, "pr3": 0.0}
+    for wave, kind, args in waves:
+        stream_t, rays, a, blk, algo, any_hit, depth = args
+        base = (stream_t, rays, a, blk)
+        g = a.shape[0] // blk
+        got = stream_walk.stream_walk(*args)
+        if not _bits_same(got, stream_walk.stream_walk_stack_pr3(*base, any_hit, depth)):
+            raise AssertionError(f"stack wave {wave} {kind}: the stack designs disagree")
+        plain = ""
+        if wave in PLAIN_WAVES:
+            work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
+            want, p_ms = _time_once(lambda: stream_walk.stream_walk_plain(*args, work=work),
+                                    dev)
+            if not _bits_same(got, want):
+                raise AssertionError(f"stack wave {wave} {kind}: the kernel differs from the "
+                                     f"plain version")
+            work = work.sum(0).tolist()
+            bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS,
+                                        _nbytes(stream_t, rays, a, *got))
+            plain = (f", plain {p_ms:.1f} ms (bit-identical), bound {bound_ms:.4f} ms "
+                     f"({bound_by})")
+        t = _in_turns({"pr3": lambda: stream_walk.stream_walk_stack_pr3(*base, any_hit, depth),
+                       "new": lambda: stream_walk.stream_walk(*args)}, reps, dev)
+        for k in total:
+            total[k] += t[k]
+        v = got[4][:, 0].float()
+        say(f"[3j stack frame] wave {wave:2d} {kind:7s} width {a.shape[0]:6d} ({g} packets), "
+            f"live {float(a.float().mean()):6.1%}, bit-identical to the first design, new "
+            f"{t['new']:.4f} ms, first design {t['pr3']:.4f} ms ({t['pr3'] / t['new']:.2f}x); "
+            f"visits mean {float(v.mean()):.1f} max {int(v.max())}{plain}")
+    say(f"[3j stack frame] one spp's {len(waves)} walk calls: new {total['new']:.3f} ms, "
+        f"first design {total['pr3']:.3f} ms ({total['pr3'] / total['new']:.2f}x)")
+    if dev.type == "cuda":
+        _walk_sass(say, ("stream_walk_stack_closest", "stream_walk_stack_any", *STACK_FIRST),
+                   "3j stack frame")
+
+
+def _inst_calls(dev: torch.device, w: int, h: int, n_inst: int = STRESS_N) -> list:
+    """The inst_rows calls of one untimed w x h 1-spp twolevelp bench frame of
+    the stress scene, in order: (wave, closest or any, its arguments),
+    captured by a spy on instanced.inst_rows."""
+    ps = compile_scene(builtin.make_instanced_stress_scene(n_inst), dev, two_level="pure")
+    cfg = wi.RenderConfig.for_scene(ps, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    cam = CameraParams.from_camera(builtin.make_stress_camera(w, h, n_inst), dev)
+    calls = _spy(instanced, "inst_rows", ps, cfg, cam, dev)
+    for args, kw in calls:
+        if kw or len(args) != 8:
+            raise AssertionError(f"the twolevelp frame called inst_rows with {len(args)} {kw}")
+    return _by_wave(calls, lambda args: args[7])
+
+
+def phase_inst_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
+    """Every inst_rows call of an untimed 1-spp stress32 twolevelp bench
+    frame (64: 32 waves, closest and shadow rays): the live kernel
+    bit-identical to its first design on every call and to the plain version
+    on PLAIN_WAVES; the two timed in turns, with each call's width,
+    live share, listed rows and bound, and the sums a spp."""
+    waves = _inst_calls(dev, w, h)
+    total = {"new": 0.0, "pr2": 0.0, "bound": 0.0}
+    for wave, kind, args in waves:
+        got = inst_rows.inst_rows(*args)
+        if not _bits_same(got, inst_rows.inst_rows_first_design(*args)):
+            raise AssertionError(f"twolevelp wave {wave} {kind}: the instanced designs "
+                                 f"disagree")
+        plain = ""
+        if wave in PLAIN_WAVES:
+            want, p_ms = _time_once(lambda: inst_rows.inst_rows_plain(*args), dev)
+            if not _bits_same(got, want):
+                raise AssertionError(f"twolevelp wave {wave} {kind}: the kernel differs from "
+                                     f"the plain version")
+            plain = f", plain {p_ms:.1f} ms (bit-identical)"
+        t = _inst_turns(args, reps, dev)
+        bound_ms, bound_by, tests, live = _inst_bound(*args[:6])
+        for k in ("new", "pr2"):
+            total[k] += t[k]
+        total["bound"] += bound_ms
+        counts = args[2]
+        rows = torch.where(counts < 0, args[3][2][None, :], counts)
+        say(f"[3k inst frame] wave {wave:2d} {kind:7s} width {args[5].shape[1]:6d}, live "
+            f"{live:6.1%}, bit-identical to the first design, new {t['new']:.4f} ms, first "
+            f"design {t['pr2']:.4f} ms ({t['pr2'] / t['new']:.2f}x), bound {bound_ms:.4f} ms "
+            f"({bound_by}, {tests:.4g} tests), mean rows a packet "
+            f"{float(rows.sum(1).float().mean()):.1f}{plain}")
+    say(f"[3k inst frame] one spp's {len(waves)} inst_rows calls: new {total['new']:.3f} ms, "
+        f"first design {total['pr2']:.3f} ms ({total['pr2'] / total['new']:.2f}x), bound "
+        f"{total['bound']:.3f} ms")
 
 
 def phase_schedule_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
@@ -2040,13 +2194,17 @@ KERNELS = {
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     **{name: ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287")
        for name in (*VARIANTS, *BF16_FIRST)},
-    "inst_rows_closest": ("surf_tpu_torch/csrc/inst_rows.cu",
-                          "surf_tpu/accel/pallas_instanced.py:260"),
-    "inst_rows_any": ("surf_tpu_torch/csrc/inst_rows.cu",
-                      "surf_tpu/accel/pallas_instanced.py:260"),
-    **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
-                                "surf_tpu/accel/pallas_wide.py:862")
-       for a in ("skip", "stack") for m in ("closest", "any")},
+    **{name: ("surf_tpu_torch/csrc/inst_rows.cu", "surf_tpu/accel/pallas_instanced.py:260")
+       for name in (*inst_rows.FIRST_DESIGNS, *INST_FIRST)},
+    **{f"stream_walk_skip_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
+                                 "surf_tpu/accel/pallas_wide.py:862")
+       for m in ("closest", "any")},
+    # the stack walk (_walk_block_stack, pallas_wide.py:672) and its first
+    # design, the yardstick
+    **{f"stream_walk_stack_{m}": ("surf_tpu_torch/csrc/stream_walk_stack.cu",
+                                  "surf_tpu/accel/pallas_wide.py:672") for m in ("closest", "any")},
+    **{name: ("surf_tpu_torch/csrc/stream_walk.cu", "surf_tpu/accel/pallas_wide.py:672")
+       for name in STACK_FIRST},
     **{f"bvh_walk_{m}": ("surf_tpu_torch/csrc/bvh_walk.cu",
                          "surf_tpu/accel/pallas_traverse.py:193") for m in ("closest", "any")},
     # ilv serves skip2 (_walk_block_pair, pallas_wide.py:314) as ilv2, and
@@ -2113,6 +2271,8 @@ def main() -> int:
     kernels.update(timed("3d binary", phase_bvh_kernel, dev))
     kernels.update(timed("3e variants", phase_variants, dev))
     timed("3i bf16 frame", phase_bf16_frame, dev)
+    timed("3j stack frame", phase_stack_frame, dev)
+    timed("3k inst frame", phase_inst_frame, dev)
     launches, bench_img = timed("4 bench", phase_bench, dev)
     launches.update(timed("4b twolevelp", phase_twolevelp_bench, dev))
     launches.update(timed("4d walks", phase_walk_bench, dev, bench_img))

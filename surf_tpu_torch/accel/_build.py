@@ -28,12 +28,15 @@ NVCC_FLAGS = (
 )
 
 # The C entry points of the walks (stream_walk.cu, stream_walk_ilv.cu,
-# stream_walk_spec.cu: one kernel template per walk),
+# stream_walk_spec.cu, stream_walk_stack.cu: one kernel template per walk),
 # dep_micro.cu, leaf_micro.cu, visit_micro.cu, shape_micro.cu, op_micro.cu
 # and mxu_micro.cu (one per variant); their wrappers count launches under
 # these names.
 WALK_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}" for a in ("skip", "stack", "ilv", "spec", "specb")
                           for m in ("closest", "any"))
+# The stack walk's first design (stream_walk.cu): reached only to time it
+# beside stream_walk_stack_{closest,any} (stream_walk_stack.cu).
+STACK_PR3_ENTRY_POINTS = ("stream_walk_stack_closest_pr3", "stream_walk_stack_any_pr3")
 # skip2 / ilvN's first design (stream_walk.cu): reached only to time it
 # beside stream_walk_ilv_{closest,any} (stream_walk_ilv.cu).
 ILV_PR5_ENTRY_POINTS = ("stream_walk_ilv_closest_pr5", "stream_walk_ilv_any_pr5")
@@ -44,10 +47,12 @@ SPEC_PR5_ENTRY_POINTS = tuple(f"stream_walk_{a}_{m}_pr5" for a in ("spec", "spec
 # The walk kernels with an entry.cuh getter: the skip walk's first design
 # (stream_walk_skip_*, reached only by stream_walk_skip_pr3: algo="skip"
 # launches stream_walk_ilv_*), the first ilv and spec designs,
-# stream_walk_ilv.cu's and stream_walk_spec.cu's.
+# stream_walk_ilv.cu's and stream_walk_spec.cu's; the stack walk's two
+# designs.
 WALK_KERNELS = ("stream_walk_skip_closest", "stream_walk_skip_any", *ILV_PR5_ENTRY_POINTS,
                 "stream_walk_ilv_closest", "stream_walk_ilv_any", *SPEC_PR5_ENTRY_POINTS,
-                *(f"stream_walk_{a}_{m}" for a in ("spec", "specb") for m in ("closest", "any")))
+                *(f"stream_walk_{a}_{m}" for a in ("spec", "specb") for m in ("closest", "any")),
+                *STACK_PR3_ENTRY_POINTS, "stream_walk_stack_closest", "stream_walk_stack_any")
 DEP_ENTRY_POINTS = tuple(f"dep_chain_{v}" for v in ("dep0", "dep1", "dep1red", "dep1lean",
                                                      "depb8", "depb8all"))
 GROUP_ENTRY_POINTS = tuple(f"leaf_groups_{v}" for v in ("full", "nodiv", "noext", "halftri"))
@@ -162,13 +167,22 @@ def library() -> ctypes.CDLL:
                 # block_rays, t_in, r_in, u_in, v_in, t, r, u, v, stream
                 fn.argtypes = [p, i, p, i, p, p, i, i, p, p, p, p, p, p, p, p, p]
             fn.restype = i
-        for name in ("inst_rows_closest", "inst_rows_any"):
+        from .inst_rows import FIRST_DESIGNS as INST_FIRST
+
+        for name in (*INST_FIRST, *INST_FIRST.values()):
             fn = getattr(lib, name)
-            # table, lists, cap_tot, counts, n_inst, segs, inv, rays,
-            # n_rays, block_rays, t, r, u, v, inst, stream
-            fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
+            if name in INST_FIRST:
+                # table, lists, cap_tot, counts, n_inst, segs, inv, rays,
+                # n_rays, block_rays, split_rows, splits, t, r, u, v, inst,
+                # keys, arrivals, stream
+                fn.argtypes = [p, p, i, p, i, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
+            else:
+                # table, lists, cap_tot, counts, n_inst, segs, inv, rays,
+                # n_rays, block_rays, t, r, u, v, inst, stream
+                fn.argtypes = [p, p, i, p, i, p, p, p, i, i, p, p, p, p, p, p]
             fn.restype = i
-        for name in WALK_ENTRY_POINTS + ILV_PR5_ENTRY_POINTS + SPEC_PR5_ENTRY_POINTS:
+        for name in (WALK_ENTRY_POINTS + STACK_PR3_ENTRY_POINTS + ILV_PR5_ENTRY_POINTS
+                     + SPEC_PR5_ENTRY_POINTS):
             fn = getattr(lib, name)
             # stream, n_entries, rays, act, n_rays, block_rays, arg (stack
             # depth, ilvN's N or rows per window), t, r, u, v, visits, stream
@@ -218,7 +232,7 @@ def library() -> ctypes.CDLL:
             fn.restype = i
         # The kernel an entry point launches (entry.cuh) and its device name.
         for name in (LIVE_ENTRY_POINTS + BF16_ENTRY_POINTS + tuple(FIRST_DESIGNS.values())
-                     + PARTS_ENTRY_POINTS
+                     + tuple(INST_FIRST) + tuple(INST_FIRST.values()) + PARTS_ENTRY_POINTS
                      + COND_ENTRY_POINTS + BODY_ENTRY_POINTS + SPLAT_ENTRY_POINTS
                      + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS + SPEC_ENTRY_POINTS
                      + MXU_ENTRY_POINTS + WALK_KERNELS):

@@ -8,8 +8,16 @@ space with its 12 inverse-transform scalars (each component
 the world parameter), then Möller–Trumbore runs over the segment's rows of
 the shared mesh table, rows ascending and the 8 records of a row in order,
 keeping the strictly closest hit with its instance id.  On a CUDA tensor it
-launches the hand-written kernel of ``csrc/inst_rows.cu``; on a CPU tensor
-it runs ``inst_rows_plain``, the plain PyTorch version of the same function.
+launches ``inst_rows_live_kernel`` of ``csrc/inst_rows.cu``: only live rays
+(t_max > 1e-5) are tested, the packet's rows (its segments one after the
+other) are cut into chunks of ``split_rows(n)`` rows shared out among
+``splits(...)`` work items a packet, and the work items merge through an
+exact (t, position) key in ``leaf_rows.merge_scratch``.  On a CPU tensor it
+runs ``inst_rows_plain``, the plain PyTorch version of the same function.
+``inst_rows_first_design`` launches the first design's kernel
+(``inst_rows_{closest,any}_pr2``: a thread a ray, every lane, a block
+walking all of its packet's segments) to time it beside the live one; no
+algo reaches it.
 
 Inputs (all on one device):
   table   [rows_tot, 128] f32  every mesh's leaf table, concatenated
@@ -36,15 +44,31 @@ import ctypes
 import torch
 
 from . import _build
-from .leaf_rows import PLAIN_PAIRS, TRIS, rows_chunk
+from .leaf_rows import PLAIN_PAIRS, TRIS, merge_scratch, rows_chunk, split_rows
 
+# The first design's kernel on the function of each entry point, reached
+# only through inst_rows_first_design.
+FIRST_DESIGNS = {"inst_rows_closest": "inst_rows_closest_pr2",
+                 "inst_rows_any": "inst_rows_any_pr2"}
 # Kernel launches since the last reset, per entry point of inst_rows.cu.
-LAUNCHES = {"inst_rows_closest": 0, "inst_rows_any": 0}
+LAUNCHES = dict.fromkeys((*FIRST_DESIGNS, *FIRST_DESIGNS.values()), 0)
+# The live kernel's grid: about this many blocks, as work items of
+# ``split_rows(n)``-row chunks, and never more work items a packet than its
+# list width has chunks (a sweep's extra rows go to the same items).
+LIVE_BLOCKS = 16384
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def splits(n_rays: int, cap_tot: int, rows: int) -> int:
+    """Work items a packet of the live kernel in a call of n_rays rays whose
+    lists are cap_tot wide, in chunks of ``rows`` rows: enough for about
+    LIVE_BLOCKS blocks, at most the list width's chunks, at least 1."""
+    blocks = max(1, n_rays // 256)
+    return max(1, min(-(-cap_tot // rows), LIVE_BLOCKS // blocks))
 
 
 def _check(table, lists, counts, segs, inv, rays, block_rays):
@@ -73,13 +97,34 @@ def inst_rows(table: torch.Tensor, lists: torch.Tensor, counts: torch.Tensor,
               segs: torch.Tensor, inv: torch.Tensor, rays: torch.Tensor,
               block_rays: int, any_hit: bool = False):
     """Closest (or any-hit) intersection of each ray with its packet's
-    instance segments: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    instance segments: the live kernel for CUDA tensors, the plain version
+    for CPU tensors."""
     _check(table, lists, counts, segs, inv, rays, block_rays)
-    device = table.device
-    if device.type == "cpu":
+    if table.device.type == "cpu":
         return inst_rows_plain(table, lists, counts, segs, inv, rays,
                                block_rays, any_hit)
+    return _launch("inst_rows_any" if any_hit else "inst_rows_closest", table, lists,
+                   counts, segs, inv, rays, block_rays)
+
+
+def inst_rows_first_design(table: torch.Tensor, lists: torch.Tensor, counts: torch.Tensor,
+                           segs: torch.Tensor, inv: torch.Tensor, rays: torch.Tensor,
+                           block_rays: int, any_hit: bool = False):
+    """``inst_rows`` through the first design's kernel (``FIRST_DESIGNS``:
+    one thread per ray, every lane, a block walking all of its packet's
+    segments).  The same function; the plain version for CPU tensors."""
+    _check(table, lists, counts, segs, inv, rays, block_rays)
+    if table.device.type == "cpu":
+        return inst_rows_plain(table, lists, counts, segs, inv, rays,
+                               block_rays, any_hit)
+    name = FIRST_DESIGNS["inst_rows_any" if any_hit else "inst_rows_closest"]
+    return _launch(name, table, lists, counts, segs, inv, rays, block_rays)
+
+
+def _launch(name, table, lists, counts, segs, inv, rays, block_rays):
+    """Launch entry point ``name`` on CUDA tensors (checked by ``_check``),
+    or raise."""
+    device = table.device
     if device.type != "cuda":
         raise ValueError(f"inst_rows runs on cpu or cuda, not {device}")
     lib = _build.library()
@@ -89,10 +134,10 @@ def inst_rows(table: torch.Tensor, lists: torch.Tensor, counts: torch.Tensor,
                          f"of {threads}, with at least one packet")
     if device.index is not None and device.index != torch.cuda.current_device():
         raise ValueError(f"{device} is not the current CUDA device")
-    for name, x in (("table", table), ("lists", lists), ("counts", counts),
-                    ("segs", segs), ("inv", inv), ("rays", rays)):
+    for label, x in (("table", table), ("lists", lists), ("counts", counts),
+                     ("segs", segs), ("inv", inv), ("rays", rays)):
         if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (rows are read as float4)")
     n = rays.shape[1]
@@ -101,13 +146,17 @@ def inst_rows(table: torch.Tensor, lists: torch.Tensor, counts: torch.Tensor,
     u = torch.empty(n, dtype=torch.float32, device=device)
     v = torch.empty(n, dtype=torch.float32, device=device)
     i = torch.empty(n, dtype=torch.int32, device=device)
-    name = "inst_rows_any" if any_hit else "inst_rows_closest"
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name)(
-        table.data_ptr(), lists.data_ptr(), lists.shape[1], counts.data_ptr(),
-        inv.shape[0], segs.data_ptr(), inv.data_ptr(), rays.data_ptr(), n,
-        block_rays, t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr(),
-        i.data_ptr(), ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    head = (table.data_ptr(), lists.data_ptr(), lists.shape[1], counts.data_ptr(),
+            inv.shape[0], segs.data_ptr(), inv.data_ptr(), rays.data_ptr(), n, block_rays)
+    outs = (t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr(), i.data_ptr())
+    if name in FIRST_DESIGNS:
+        rows = split_rows(n)
+        keys, arrivals = merge_scratch(torch.device("cuda", torch.cuda.current_device()), n)
+        err = getattr(lib, name)(*head, rows, splits(n, lists.shape[1], rows), *outs,
+                                 keys.data_ptr(), arrivals.data_ptr(), stream)
+    else:
+        err = getattr(lib, name)(*head, *outs, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     LAUNCHES[name] += 1

@@ -100,9 +100,10 @@ FIRST_DESIGNS = {"leaf_rows_closest": "leaf_rows_closest_pr1",
 # Kernel launches since the last reset, per entry point of leaf_rows.cu.
 LAUNCHES = dict.fromkeys((*ENTRY_POINTS, *FIRST_DESIGNS.values()), 0)
 
-# The live kernel's merge scratch per device: (keys int64, arrivals int32),
-# zeroed once when allocated and left zero by every launch.  Calls share it,
-# so they must run on one stream at a time (as every render path does).
+# The live kernels' merge scratch per device (leaf_rows.cu's and
+# inst_rows.cu's): (keys int64, arrivals int32), zeroed once when allocated
+# and left zero by every launch.  Calls share it, so they must run on one
+# stream at a time (as every render path does).
 _SCRATCH: dict = {}
 
 
@@ -184,8 +185,8 @@ def split_rows(n_rays: int) -> int:
     return SPLIT_ROWS if n_rays >= WIDE_RAYS else NARROW_SPLIT_ROWS
 
 
-def _scratch(device: torch.device, n: int):
-    """The live kernel's merge scratch for n rays: keys [>= n] int64 and
+def merge_scratch(device: torch.device, n: int):
+    """The live kernels' merge scratch for n rays: keys [>= n] int64 and
     arrivals [>= n / 256] int32, zero (a larger call replaces it)."""
     keys, arrivals = _SCRATCH.get(device, (None, None))
     if keys is None or keys.numel() < n:
@@ -226,7 +227,7 @@ def _launch(name, table, lists, n_rows, rays, block_rays, carry):
     outs = (t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr())
     c_in = [x.data_ptr() for x in carry] if carry is not None else [None] * 4
     if name in LIVE_ENTRY_POINTS + BF16_ENTRY_POINTS:
-        keys, arrivals = _scratch(torch.device("cuda", torch.cuda.current_device()), n)
+        keys, arrivals = merge_scratch(torch.device("cuda", torch.cuda.current_device()), n)
         err = getattr(lib, name)(*head, split_rows(n), *c_in, *outs, keys.data_ptr(),
                                  arrivals.data_ptr(), stream)
     else:

@@ -21,8 +21,8 @@ TPU's schedules of the skip walk, its width N:
 - ``stack`` (``_walk_block_stack``): a node row tests its 8 child boxes
   against the packet and goes to the first child some live ray hits,
   keeping (row, remaining children) on a per-packet stack; with no child
-  hit it pops the stack (re-reading the parent row for the next child's
-  pointer).  Only hit children are visited.
+  hit it pops the stack (to the next pending child of the top entry).
+  Only hit children are visited.
 
 Every ray keeps the strictly closest hit in test order; with ``any_hit``
 a ray stops testing once it has a hit, and the packet stops once every
@@ -34,17 +34,18 @@ never hit); the caller nudges zero direction components, so 1/d is
 finite.
 
 On a CUDA tensor ``stream_walk`` launches the hand-written kernels of
-``csrc/stream_walk.cu`` (``stack``), ``csrc/stream_walk_ilv.cu`` (``skip``,
-``skip2`` and ``ilvN``: ``skip`` is ``ilv1``'s function, one cursor a
-packet along the skip links) and ``csrc/stream_walk_spec.cu`` (``specN``
-and ``specbN``); the last two take one packet a work item, its active
-rays spread over a cluster of 8 blocks.  On a CPU tensor it runs
-``stream_walk_plain``, the plain PyTorch version, which walks all packets
-in lockstep, each with its own cursor.  ``stream_walk_skip_pr3``,
-``stream_walk_ilv_pr5`` and ``stream_walk_spec_pr5`` launch the first
-designs of skip (a 512-thread block a packet, in ``stream_walk.cu``), of
-skip2 / ilvN (N packets a block) and of specN / specbN (a block a
-packet), to time them beside ``stream_walk``; no algo reaches them.
+``csrc/stream_walk_ilv.cu`` (``skip``, ``skip2`` and ``ilvN``: ``skip`` is
+``ilv1``'s function, one cursor a packet along the skip links),
+``csrc/stream_walk_spec.cu`` (``specN`` and ``specbN``) and
+``csrc/stream_walk_stack.cu`` (``stack``); each takes one packet a work
+item, its active rays spread over a cluster of 8 blocks.  On a CPU tensor
+it runs ``stream_walk_plain``, the plain PyTorch version, which walks all
+packets in lockstep, each with its own cursor.  ``stream_walk_skip_pr3``,
+``stream_walk_stack_pr3``, ``stream_walk_ilv_pr5`` and
+``stream_walk_spec_pr5`` launch the first designs of ``csrc/stream_walk.cu``:
+skip and stack (a 512-thread block a packet), skip2 / ilvN (N packets a
+block) and specN / specbN (a block a packet), to time them beside
+``stream_walk``; no algo reaches them.
 
 Inputs (all on one device):
   stream  [E, 128] f32    the stream (node and leaf rows, lanes 9/10 meta)
@@ -73,16 +74,17 @@ ALGOS = ("skip", "stack", "skip2", *(f"ilv{n}" for n in range(1, MAX_ILV + 1)),
          *(f"spec{n}" for n in range(1, MAX_SPEC + 1)),
          *(f"specb{n}" for n in range(1, MAX_SPEC + 1)))
 STACK_DEPTH = 16    # the stack walk's least depth, pallas_wide.STACK_DEPTH
-STACK_CAP = 64      # the kernel's stack capacity (kMaxStack)
+STACK_CAP = 64      # the kernels' stack capacity (kMaxStack)
 K_VISITS = 32       # the stack walk's belt (n_entries + K_VISITS); spec's group
 SPECB_VISITS = 8    # specb's group of windows between any-hit checks
 
 # Kernel launches since the last reset, per entry point of stream_walk.cu,
-# stream_walk_ilv.cu and stream_walk_spec.cu (one kernel template per walk
-# of parse_algo, and the first skip, ilv and spec designs; a skip walk
-# counts under stream_walk_ilv_*, its first design under stream_walk_skip_*).
-LAUNCHES = dict.fromkeys((*_build.WALK_ENTRY_POINTS, *_build.ILV_PR5_ENTRY_POINTS,
-                          *_build.SPEC_PR5_ENTRY_POINTS), 0)
+# stream_walk_ilv.cu, stream_walk_spec.cu and stream_walk_stack.cu (one
+# kernel template per walk of parse_algo, and the first skip, stack, ilv
+# and spec designs; a skip walk counts under stream_walk_ilv_*, its first
+# design under stream_walk_skip_*).
+LAUNCHES = dict.fromkeys((*_build.WALK_ENTRY_POINTS, *_build.STACK_PR3_ENTRY_POINTS,
+                          *_build.ILV_PR5_ENTRY_POINTS, *_build.SPEC_PR5_ENTRY_POINTS), 0)
 
 
 def parse_algo(algo: str) -> tuple[str, int]:
@@ -164,6 +166,19 @@ def stream_walk_skip_pr3(stream: torch.Tensor, rays: torch.Tensor, act: torch.Te
         return stream_walk_plain(stream, rays, act, block_rays, "skip", any_hit)
     name = f"stream_walk_skip_{'any' if any_hit else 'closest'}"
     return _launch(name, stream, rays, act, block_rays, 1)
+
+
+def stream_walk_stack_pr3(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,
+                          block_rays: int, any_hit: bool = False, max_depth: int = 0):
+    """``stream_walk`` of ``stack`` through the first design's kernel
+    (``stream_walk.cu``: a 512-thread block a packet, every lane, 4 rays a
+    thread at 2048-ray packets, the stack in shared memory); the plain
+    version for CPU tensors."""
+    _check(stream, rays, act, block_rays, "stack")
+    if stream.device.type == "cpu":
+        return stream_walk_plain(stream, rays, act, block_rays, "stack", any_hit, max_depth)
+    name = _build.STACK_PR3_ENTRY_POINTS[int(bool(any_hit))]
+    return _launch(name, stream, rays, act, block_rays, stack_depth(max_depth))
 
 
 def stream_walk_ilv_pr5(stream: torch.Tensor, rays: torch.Tensor, act: torch.Tensor,

@@ -50,6 +50,7 @@ OWN_KERNELS = {"leaf_rows_kernel": "leaf_rows kernel",
                "leaf_rows_live_kernel": "leaf_rows kernel",
                "leaf_rows_bf16_live_kernel": "leaf_rows kernel",
                "inst_rows_kernel": "inst_rows kernel",
+               "inst_rows_live_kernel": "inst_rows kernel",
                "stream_walk_": "stream_walk kernel",
                "bvh_walk_kernel": "bvh_walk kernel"}
 LAYERS = (

@@ -60,6 +60,7 @@
 #include <type_traits>
 
 #include "entry.cuh"
+#include "live_rows.cuh"
 #include "mt.cuh"
 
 namespace {
@@ -67,9 +68,8 @@ namespace {
 constexpr int kLane = 128;    // floats per leaf-table row
 constexpr int kRec = 16;      // floats per triangle record
 constexpr int kTris = 8;      // triangles per row
-constexpr int kThreads = 256; // rays per block
+constexpr int kThreads = surf::kLiveThreads; // rays per block
 constexpr int kChunk = 32;    // rows staged in shared memory at a time
-constexpr int kUnroll = 8;    // t_max loads in flight a thread (compaction)
 
 enum Record { kMT = 0, kBW = 1 };
 
@@ -262,97 +262,8 @@ int launch(const float* table, int table_rows, const int* lists, int cap,
 //    (mt.cuh rcp_in_range: the same bits for |a| < 2^126) without nvcc's
 //    per-test range check and branch; a row in which some |a| >= 2^126
 //    (or inf) runs again from its start with the IEEE division.
-
-// One row's 8 record tests with the IEEE division, sequential
-// strictly-closer updates of (best_t, best_pos) from position pos0: the
-// rare path of leaf_rows_live_kernel, inlined as a loop of its own (not
-// unrolled; as a __noinline__ call it cost the hot loop registers and time).
-__device__ __forceinline__ void row_exact(const float4* row, int pos0, float ox, float oy,
-                                          float oz, float dx, float dy, float dz,
-                                          float& best_t, int& best_pos) {
-#pragma unroll 1
-  for (int j = 0; j < kTris; ++j) {
-    const float4 a = row[j * 4], b = row[j * 4 + 1], c = row[j * 4 + 2];
-    float t, u, v;
-    if (surf::mt_hit(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz, dx, dy,
-                     dz, best_t, t, u, v)) {
-      best_t = t;
-      best_pos = pos0 + j;
-    }
-  }
-}
-
-// Live-ray compaction of list list_id, shared by the live kernels: thread i
-// owns lanes [i * slices, (i + 1) * slices) of the list; one block scan of
-// the per-thread live counts (start t > 1e-5; NaN is not live) ranks the
-// live lanes, and the lanes of rank [slice * 256, slice * 256 + 256) go to
-// live_lane in rank order.  The start t loads go kUnroll at a time, all in
-// flight together.  dead(lane, start t) is called for every dead lane when
-// writes_dead.  Returns the list's live count; every thread of the block
-// calls it.
-template <class Dead>
-__device__ __forceinline__ int compact_live(const float* __restrict__ start_of, int slices,
-                                            int slice, bool writes_dead, int* live_lane,
-                                            int* warp_live, Dead dead) {
-  const int lane0 = threadIdx.x * slices;
-  int mine = 0;
-  for (int i0 = 0; i0 < slices; i0 += kUnroll) {
-    float tmv[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) tmv[i] = i0 + i < slices ? start_of[lane0 + i0 + i] : 0.0f;
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) mine += tmv[i] > surf::kEps;
-  }
-  const int wid = threadIdx.x >> 5, lid = threadIdx.x & 31;
-  int incl = mine;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lid >= o) incl += x;
-  }
-  if (lid == 31) warp_live[wid] = incl;
-  __syncthreads();
-  int before = 0, n_live = 0;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    const int c = warp_live[w];
-    before += w < wid ? c : 0;
-    n_live += c;
-  }
-  int rank = before + incl - mine;
-  const int lo_rank = slice * kThreads;
-  for (int i = 0; i < slices; ++i) {  // the loads above left these in L1
-    const int lane = lane0 + i;
-    const float tm = start_of[lane];
-    if (tm > surf::kEps) {
-      if (rank >= lo_rank && rank < lo_rank + kThreads) live_lane[rank - lo_rank] = lane;
-      ++rank;
-    } else if (writes_dead) {
-      dead(lane, tm);
-    }
-  }
-  return n_live;
-}
-
-// The split merge of the live kernels (point 3 above): each thread's key
-// goes into its ray's slot by atomicMax; the last split of the list to
-// arrive takes the merged key and resets the slot and the counter.  Returns
-// false in every other block.  Every thread of the block calls it.
-template <class Key>
-__device__ __forceinline__ bool merge_splits(Key& key, bool has_ray, Key* slot,
-                                             unsigned* arrival, int parts, bool* last) {
-  if (parts == 1) return true;
-  if (key != 0) atomicMax(slot, key);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) *last = atomicAdd(arrival, 1u) == static_cast<unsigned>(parts - 1);
-  __syncthreads();
-  if (!*last) return false;
-  __threadfence();
-  if (has_ray) key = atomicExch(slot, Key(0));
-  if (threadIdx.x == 0) *arrival = 0u;
-  return true;
-}
+// The compaction, the merge and the exact row are live_rows.cuh's, shared
+// with inst_rows.cu's live kernel.
 
 // A live kernel's block (points 1 and 2 above): list list_id, whose lanes
 // start at first, its slice of the list's live lanes (slices of them a
@@ -419,7 +330,7 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
 
   const size_t stride = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
   const size_t first = b.first;
-  const int n_live = compact_live(
+  const int n_live = surf::compact_live(
       rays + 6 * stride + first, b.slices, b.slice, b.slice == 0 && blockIdx.y == 0,
       live_lane, warp_live, [&](int lane, float tm) {
         write_start<false>(first + lane, tm, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
@@ -477,7 +388,7 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
                    // (never in a real scene): the row again with 1 / a
         best_t = row_t;
         best_pos = row_pos;
-        row_exact(row, (base + k) * kTris, ox, oy, oz, dx, dy, dz, best_t, best_pos);
+        surf::row_exact(row, (base + k) * kTris, ox, oy, oz, dx, dy, dz, best_t, best_pos);
       }
     }
   }
@@ -493,8 +404,8 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
       key = ~((static_cast<unsigned long long>(tb) << 32) | static_cast<unsigned>(best_pos));
     }
   }
-  if (!merge_splits(key, has_ray, reinterpret_cast<Key*>(keys) + ray, &arrivals[blockIdx.x],
-                    b.parts, &last))
+  if (!surf::merge_splits(key, has_ray, reinterpret_cast<Key*>(keys) + ray,
+                          &arrivals[blockIdx.x], b.parts, &last))
     return;
   if (!has_ray) return;
   if (key == 0) {
@@ -651,7 +562,7 @@ leaf_rows_bf16_live_kernel(const float* __restrict__ table, int table_rows,
   const size_t stride = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
   const size_t first = b.first;
   const float* start_t = kCarry ? t_in : rays + 6 * stride;
-  const int n_live = compact_live(
+  const int n_live = surf::compact_live(
       start_t + first, b.slices, b.slice, b.slice == 0 && blockIdx.y == 0, live_lane,
       warp_live, [&](int lane, float t0) {
         write_start<kCarry>(first + lane, t0, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
@@ -726,7 +637,8 @@ leaf_rows_bf16_live_kernel(const float* __restrict__ table, int table_rows,
   if (has_ray && best_t < t0)
     key = ~((static_cast<unsigned long long>(__float_as_uint(best_t)) << 32) |
             static_cast<unsigned>(best_pos));
-  if (!merge_splits(key, has_ray, keys + ray, &arrivals[blockIdx.x], b.parts, &last)) return;
+  if (!surf::merge_splits(key, has_ray, keys + ray, &arrivals[blockIdx.x], b.parts, &last))
+    return;
   if (!has_ray) return;
   if (key == 0) {
     write_start<kCarry>(ray, t0, r_in, u_in, v_in, t_out, r_out, u_out, v_out);

@@ -19,14 +19,17 @@
 // resolve the cursor from their N votes after one barrier.
 //
 // Design: one block per packet (ilvN: per N packets), the function the TPU
-// kernel computes.  skip, skip2 and ilvN run stream_walk_ilv.cu's kernel
-// (skip is ilv1's function) and specN / specbN stream_walk_spec.cu's (one
-// packet a work item over a cluster); their first designs, below, stay as
-// the entry points stream_walk_skip_{closest,any} and
+// kernel computes.  No algo runs these kernels any more: skip, skip2 and
+// ilvN run stream_walk_ilv.cu's kernel (skip is ilv1's function), specN /
+// specbN stream_walk_spec.cu's and stack stream_walk_stack.cu's (one
+// packet a work item over a cluster).  These first designs stay as the
+// entry points stream_walk_skip_{closest,any},
+// stream_walk_stack_{closest,any}_pr3 and
 // stream_walk_{ilv,spec,specb}_{closest,any}_pr5, which only the timing in
 // chip_smoke.py and the CUDA tests reach (accel/stream_walk.py
-// stream_walk_skip_pr3, stream_walk_ilv_pr5, stream_walk_spec_pr5).  kThreads threads hold block_rays / kThreads
-// rays each (a 2048-ray packet exceeds 1024 threads).  The packet's cursor is the
+// stream_walk_skip_pr3, stream_walk_stack_pr3, stream_walk_ilv_pr5,
+// stream_walk_spec_pr5).  kThreads threads hold block_rays / kThreads rays
+// each (a 2048-ray packet exceeds 1024 threads).  The packet's cursor is the
 // same in every thread: each thread reads the visited row from device
 // memory at the same addresses as float4 loads (a broadcast in L1), tests
 // its rays, and a block vote gives the packet-wide "some live ray hits",
@@ -652,8 +655,9 @@ extern "C" int stream_walk_threads_per_block() { return kThreads; }
 
 SURF_STREAM_ENTRY(stream_walk_skip_closest, kSkip, false)
 SURF_STREAM_ENTRY(stream_walk_skip_any, kSkip, true)
-SURF_STREAM_ENTRY(stream_walk_stack_closest, kStack, false)
-SURF_STREAM_ENTRY(stream_walk_stack_any, kStack, true)
+// The stack walk's first design (stream_walk_stack.cu serves the algo).
+SURF_STREAM_ENTRY(stream_walk_stack_closest_pr3, kStack, false)
+SURF_STREAM_ENTRY(stream_walk_stack_any_pr3, kStack, true)
 // skip2 / ilvN's first design (stream_walk_ilv.cu serves the algos).
 SURF_STREAM_ENTRY(stream_walk_ilv_closest_pr5, kIlv, false)
 SURF_STREAM_ENTRY(stream_walk_ilv_any_pr5, kIlv, true)
@@ -663,11 +667,12 @@ SURF_STREAM_ENTRY(stream_walk_spec_any_pr5, kSpec, true)
 SURF_STREAM_ENTRY(stream_walk_specb_closest_pr5, kSpecb, false)
 SURF_STREAM_ENTRY(stream_walk_specb_any_pr5, kSpecb, true)
 
-// The kernel of the skip walk and of the first ilv and spec designs at
-// 2048-ray packets (skip2: two packets a block), for the SASS checks
-// (entry.cuh).
+// The kernel of the first skip, stack, ilv and spec designs at 2048-ray
+// packets (skip2: two packets a block), for the SASS checks (entry.cuh).
 SURF_KERNEL_OF(stream_walk_skip_closest, stream_walk_skip_kernel<4, false>)
 SURF_KERNEL_OF(stream_walk_skip_any, stream_walk_skip_kernel<4, true>)
+SURF_KERNEL_OF(stream_walk_stack_closest_pr3, stream_walk_stack_kernel<4, false>)
+SURF_KERNEL_OF(stream_walk_stack_any_pr3, stream_walk_stack_kernel<4, true>)
 SURF_KERNEL_OF(stream_walk_ilv_closest_pr5, stream_walk_ilv_kernel<2, 4, false>)
 SURF_KERNEL_OF(stream_walk_ilv_any_pr5, stream_walk_ilv_kernel<2, 4, true>)
 SURF_KERNEL_OF(stream_walk_spec_closest_pr5, stream_walk_spec_kernel<4, false, false>)

@@ -1,7 +1,9 @@
 """The hand-written kernels (leaf rows with every entry point and the first
 designs of the f32 and bf16 pairs, the packed bf16x2 ops, instanced leaf
-rows, the stream walks with the TPU schedules and the first designs of
-skip, ilvN and specN / specbN, the binary walk, the dependent-cursor, leaf-row,
+rows and their first design, the stream walks with the TPU schedules and
+the first designs of skip, stack, ilvN and specN / specbN, the binary walk,
+the SASS of the stack walk's and the instanced rows' new kernels, the
+dependent-cursor, leaf-row,
 walk-visit, visit-shape, matrix-unit and op-cost microbenchmarks) against
 their plain PyTorch versions, on the card.
 These tests need an NVIDIA GPU with nvcc and skip elsewhere.  They import
@@ -16,6 +18,7 @@ held by their gates (micro/_mxu.py MXU_GATE, BF16_GATE).
 """
 
 import ctypes
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -28,17 +31,19 @@ from surf_tpu_torch.accel import leaf_rows as leaf_rows_mod
 from surf_tpu_torch.accel.leaf_rows import (ENTRY_POINTS, FIRST_DESIGNS, LAUNCHES, leaf_rows,
                                             leaf_rows_first_design, leaf_rows_plain,
                                             reset_launches)
-from surf_tpu_torch.micro import (_mxu, cond_visit, dep_chain, lane_extract, lane_splat,
+from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, lane_extract, lane_splat,
                                   leaf_groups, leaf_visit, mask_reduce, mxu_parts, mxu_pltd,
                                   mxu_tiles, quant_visit, spec_visit, stack_visit, visit_bodies,
                                   visit_cost, visit_parts, walk_interleave)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams
 from surf_tpu_torch.scene.compile import compile_scene
-from surf_tpu_torch.wavefront.integrator import (RenderConfig, initial_seeds,
+from surf_tpu_torch.wavefront.integrator import (BENCH_KNOBS, RenderConfig, initial_seeds,
                                                  render_frame_seeded)
 
+import test_torch_inst_split as inst_split
 import test_torch_spec_split as spec_split
+import test_torch_stack_split as stack_split
 from leaf_split_data import adversarial, bf16_pairs, bf16_ties, carry_starts
 
 pytestmark = pytest.mark.cuda
@@ -409,12 +414,121 @@ def test_twolevelp_render_through_kernel_matches_plain(stress, cuda):
     inst_rows.reset_launches()
     img_k, seed_k = render_frame_seeded(ps, cfg, cam, initial_seeds(cfg, 0, cuda))
     torch.cuda.synchronize()
-    assert all(k > 0 for k in inst_rows.LAUNCHES.values())
+    assert all(inst_rows.LAUNCHES[k] > 0 for k in inst_rows.FIRST_DESIGNS)
     with mock.patch.object(instanced, "inst_rows", inst_rows.inst_rows_plain):
         img_p, seed_p = render_frame_seeded(ps, cfg, cam, initial_seeds(cfg, 0, cuda))
     assert torch.isfinite(img_k).all() and (img_k >= 0).all()
     assert torch.equal(img_k, img_p)
     assert torch.equal(seed_k, seed_p)
+
+
+def _inst_matches(data, any_hit, split_rows=None, splits=None):
+    """inst_rows (the live kernel) and inst_rows_first_design against the
+    plain version, bit for bit, one launch each (split_rows / splits: the
+    live kernel's, else the wrapper's); the merge's scratch left zero.
+    Returns the plain result."""
+    name = "inst_rows_any" if any_hit else "inst_rows_closest"
+    inst_rows.reset_launches()
+    with mock.patch.object(inst_rows, "split_rows",
+                           (lambda n: split_rows) if split_rows else inst_rows.split_rows), \
+            mock.patch.object(inst_rows, "splits",
+                              (lambda n, c, r: splits) if splits else inst_rows.splits):
+        got = inst_rows.inst_rows(*data, any_hit)
+    old = inst_rows.inst_rows_first_design(*data, any_hit)
+    assert inst_rows.LAUNCHES[name] == 1 and inst_rows.LAUNCHES[name + "_pr2"] == 1
+    assert sum(inst_rows.LAUNCHES.values()) == 2
+    want = inst_rows.inst_rows_plain(*data, any_hit)
+    torch.cuda.synchronize()
+    _bits_equal(got, want)
+    _bits_equal(old, want)
+    for x in leaf_rows_mod._SCRATCH[torch.device("cuda", torch.cuda.current_device())]:
+        assert not bool(x.any())
+    return want
+
+
+@pytest.mark.parametrize("splits", [1, 3, 64])
+@pytest.mark.parametrize("split_rows", [1, 16, 32])
+@pytest.mark.parametrize("live_share", [0.0, 0.01, 0.4, 1.0])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_inst_live_kernel_on_adversarial_data(cuda, any_hit, live_share, split_rows, splits):
+    """The live instanced kernel on tests/test_torch_inst_split.py's
+    adversarial set: equal t through two instances (the lower must win),
+    sweeps between list segments, a triangle whose |det| is past the
+    in-range reciprocal's range, a 0-row packet, an all-dead packet, and
+    dead, NaN and barely live t_max; 1-32 rows a chunk, 1-64 work items."""
+    data = tuple(x.to(cuda) if torch.is_tensor(x) else x
+                 for x in inst_split.adversarial(seed=3, live_share=live_share))
+    _inst_matches(data, any_hit, split_rows, splits)
+
+
+@pytest.mark.parametrize("mode", ["closest", "any_hit", "sweep"])
+def test_inst_live_kernel_on_stress_packets(cuda, mode):
+    """The same on the emulation's stress32 packets (512-ray packets, one
+    all dead, one 40% active; SWEEP_CAP forces per-instance sweeps), and
+    in 2048-ray packets at every chunk size."""
+    data = tuple(x.to(cuda) if torch.is_tensor(x) else x
+                 for x in inst_split.stress_packets(
+                     cap=inst_split.SWEEP_CAP if mode == "sweep" else None,
+                     any_hit=mode == "any_hit"))
+    _inst_matches(data, mode == "any_hit")
+    for rows in (1, 16, 32):
+        _inst_matches(data, mode == "any_hit", rows, 5)
+
+
+def test_inst_live_kernel_on_the_capacity_scene(cuda):
+    """The 202-instance capacity scene (phase 4c's), 2048-ray packets of
+    random rays over the grid, closest and any-hit, with inst_cap 8 too
+    (most lists sweep)."""
+    scene = builtin.make_instanced_stress_scene(200)
+    n = 8 * 2048
+    rng = np.random.default_rng(9)
+    o = torch.from_numpy(rng.uniform(-30, 30, (n, 3)).astype(np.float32)).to(cuda)
+    o[:, 1] = o[:, 1].abs() + 1.0
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(n, 3)).astype(np.float32)).to(cuda), dim=1)
+    act = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    for cap in (None, 8):
+        ps = compile_scene(scene, cuda, two_level="pure", inst_cap=cap)
+        assert ps.inst.inv.shape[0] == 202
+        for any_hit, t in ((False, 1e30), (True, 6.0)):
+            rays, lists, counts = instanced.prepare(ps.inst, o, d, torch.full((n,), t,
+                                                                              device=cuda),
+                                                    act, 2048)
+            if cap:
+                assert (counts < 0).any()
+            data = (ps.inst.ltab, lists, counts, ps.inst.segs, ps.inst.inv, rays, 2048)
+            want = _inst_matches(data, any_hit)
+            assert (want[4] >= 0).any()
+
+
+def _frame_calls(module, attr, scene, cam, cuda, **knobs):
+    """The positional arguments of every ``module.attr`` call of one 128x128
+    1-spp frame with the bench knobs (its waves narrow down the ladder,
+    closest-hit and shadow calls alike), in order."""
+    cfg = RenderConfig.for_scene(scene, 128, 128, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS, **knobs)
+    calls = []
+    real = getattr(module, attr)
+
+    def spy(*args, **kw):
+        assert not kw
+        calls.append(args)
+        return real(*args)
+
+    with mock.patch.object(module, attr, spy):
+        render_frame_seeded(scene, cfg, cam, initial_seeds(cfg, 0, cuda))
+    torch.cuda.synchronize()
+    return calls
+
+
+def test_inst_live_kernel_on_a_frames_calls(stress, cuda):
+    """Every inst_rows call of a 128x128 stress32 twolevelp frame: the live
+    kernel and the first design against the plain version."""
+    cam = CameraParams.from_camera(builtin.make_stress_camera(128, 128, 32), cuda)
+    calls = _frame_calls(instanced, "inst_rows", stress[None], cam, cuda)
+    assert len(calls) >= 8 and {bool(args[7]) for args in calls} == {False, True}
+    for args in calls:
+        _inst_matches(args[:7], args[7])
 
 
 def _walk_rays(cuda, block):
@@ -448,6 +562,111 @@ def test_stream_walk_matches_plain_bit_exact(indoor, cuda, algo, any_hit):
     assert visits.shape == (4, 3) and visits[1].tolist() == [0, 0, 0]
     assert (visits[[0, 2, 3], 1] > 0).all() and (got[1][2048:4096] == -1).all()
     assert torch.equal(visits[:, 0], visits[:, 2]) and (got[1] >= 0).any()
+
+
+def _stack_matches(stream_t, rays, a, block, any_hit, max_depth):
+    """stream_walk_stack_{closest,any} and the first design (_pr3) against
+    the plain version, bit for bit with equal counts, one launch each;
+    returns the plain result."""
+    mode = "any" if any_hit else "closest"
+    base = (stream_t, rays, a, block)
+    want = stream_walk.stream_walk_plain(*base, "stack", any_hit, max_depth)
+    stream_walk.reset_launches()
+    got = stream_walk.stream_walk(*base, "stack", any_hit, max_depth)
+    old = stream_walk.stream_walk_stack_pr3(*base, any_hit, max_depth)
+    torch.cuda.synchronize()
+    assert stream_walk.LAUNCHES[f"stream_walk_stack_{mode}"] == 1
+    assert stream_walk.LAUNCHES[f"stream_walk_stack_{mode}_pr3"] == 1
+    assert sum(stream_walk.LAUNCHES.values()) == 2
+    for g, o, w in zip(got, old, want):
+        assert torch.equal(g, w) and torch.equal(o, w)
+    return want
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("live", [0.01, 0.4, 1.0])
+@pytest.mark.parametrize("packets", [1, 2, 4, 128])
+def test_stack_kernel_matches_plain_and_pr3(indoor, cuda, packets, live, any_hit):
+    """The cluster stack walk and its first design against the plain version
+    on the indoor stream, 1-128 packets of 2048 rays, 1-100% live
+    (``_ilv_rays``: the second packet all dead, 300 pad rays)."""
+    rays, a = _ilv_rays(cuda, packets, live, any_hit)
+    want = _stack_matches(indoor.stream.stream, rays, a, 2048, any_hit,
+                          indoor.stream.max_depth)
+    assert want[4].shape == (packets, 3)
+    if packets > 1:
+        assert want[4][1].tolist() == [0, 0, 0] and (want[1][2048:4096] == -1).all()
+
+
+def test_stack_kernel_on_a_frames_calls(indoor, cuda):
+    """Every stream-walk call of a 128x128 indoor stack frame: the cluster
+    stack kernel and its first design against the plain version, counts
+    included."""
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(128, 128), cuda)
+    calls = _frame_calls(stream, "stream_walk", indoor, cam, cuda, algo="stack")
+    assert len(calls) >= 8 and {bool(args[5]) for args in calls} == {False, True}
+    for stream_t, rays, a, block, algo, any_hit, max_depth in calls:
+        assert algo == "stack"
+        _stack_matches(stream_t, rays, a, block, any_hit, max_depth)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("block", [512, 1024, 2048])
+def test_stack_packet_sizes_match_plain(indoor, cuda, block, any_hit):
+    """The stack kernel at every packet size the wrapper takes (8 blocks of
+    64, 128 or 256 threads a packet), 4 packets, 40% active."""
+    rays, a = _ilv_rays(cuda, 4, 0.4, any_hit, block=block)
+    _stack_matches(indoor.stream.stream, rays, a, block, any_hit, indoor.stream.max_depth)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_stack_kernel_on_the_emulation_data(indoor, cuda, any_hit):
+    """tests/test_torch_stack_split.py's sets in 512-ray packets: the indoor
+    packets (1-100% live, an all-dead packet, a lane slice, rays inside the
+    room, pad rays); the 18-level chain that fills the stack to its depth;
+    and the same chain with a stack of 16, whose lost pushes send the walk
+    back to row 0 until the belt stops it."""
+    rays, a = (x.to(cuda) for x in stack_split._data(any_hit))
+    _stack_matches(indoor.stream.stream, rays, a, 512, any_hit, indoor.stream.max_depth)
+    chain = stack_split.deep_stream(stack_split.LEVELS).to(cuda)
+    rays, a = (x.to(cuda) for x in stack_split._deep_rays(2 * 512))
+    _stack_matches(chain, rays, a, 512, any_hit, stack_split.LEVELS)
+    if not any_hit:
+        want = _stack_matches(chain, rays, a, 512, False, 16)
+        assert (want[4][:, 0] == chain.shape[0] + stream_walk.K_VISITS).all()
+
+
+def test_stack_kernel_rejects_bad_inputs(indoor, cuda):
+    """A stream deeper than the stack's capacity and a packet size the
+    kernel does not take raise, as on the CPU."""
+    rays, a = _ilv_rays(cuda, 1, 1.0, False)
+    with pytest.raises(ValueError):
+        stream_walk.stream_walk(indoor.stream.stream, rays, a, 2048, "stack", False, 65)
+    with pytest.raises(ValueError):
+        stream_walk.stream_walk(indoor.stream.stream, rays[:, :1536].contiguous(),
+                                a[:1536].contiguous(), 1536, "stack")
+
+
+# The new kernels' entry points, found by name (csrc/entry.cuh).
+NEW_SASS = ("stream_walk_stack_closest", "stream_walk_stack_any", "inst_rows_closest",
+            "inst_rows_any")
+
+
+@pytest.mark.parametrize("entry", NEW_SASS)
+def test_new_kernels_fuse_no_multiply_and_add(cuda, entry):
+    """--fmad=false: in every loop of the kernel that holds slab tests
+    (FMNMX) or record tests (MUFU.RCP), each FFMA is a reciprocal's Newton
+    step (nvcc's 1 / a and mt.cuh rcp_in_range: two a MUFU.RCP), never a
+    multiply and add of a test fused, and the tests' FMUL and FADD are
+    there."""
+    loops = [ops for _, _, ops in _visit.loop_bodies(entry)
+             if any(o.startswith(("FMNMX", "MUFU.RCP")) for o in ops)]
+    assert loops, f"{entry}: no loop holds a test"
+    for ops in loops:
+        count = Counter(o.split(".")[0] for o in ops)
+        rcp = sum(o.startswith("MUFU.RCP") for o in ops)
+        assert count["FFMA"] <= 2 * rcp, f"{entry}: {count['FFMA']} FFMA, {rcp} MUFU.RCP"
+        assert count["FMUL"] + count["FADD"] >= 8 * rcp
 
 
 # The TPU schedules beyond those chip_smoke.py times (skip2, ilv2, ilv4,
