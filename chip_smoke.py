@@ -42,8 +42,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      algo="stack" runs the cluster stack kernel (stream_walk_stack.cu), and
      its first design (stream_walk_stack_pr3: the _pr3 entry points) is
      held bit-identical too and timed in turns with it;
-  3d. binary walk: the binary-BVH walk kernel against its plain version on
-     the same rays in 1024-ray packets, the same way;
+  3d. binary walk: the binary-BVH walk kernel (bvh_walk_live.cu: live
+     compaction, both successors and a leaf's triangles staged, one vote a
+     step) and its first design (bvh_walk_pr3: the _pr3 entry points)
+     against the plain version on the same rays in 1024-ray packets, hits
+     and per-packet counts bit-identical or the phase fails; the two timed
+     in turns; the SASS instructions a triangle test and a slab test (with
+     the step) of both and their ptxas registers;
   4. bench: the bench config (bench.py: indoor scene, 512x512 @ 16 spp as
      16 one-spp calls, wave cap 32, 2048-ray packets, Morton lanes,
      compaction every 16 waves, ladder 6 / shrink 2) through the leaf-row
@@ -82,9 +87,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      A carry-in entry point resumes over each list's rows past the first
      CARRY_ROWS from a round-A call of its non-carry twin over those rows
      (the sweeps all in round A), and must then equal the one-call result.
-     The bf16 pair (leaf_rows_bf16_live_kernel) is timed in turns with its
-     first design (leaf_rows_first_design with precision="bf16": the _pr4
-     entry points), which must be bit-identical too;
+     Each (the f32 ones on leaf_rows_live_kernel, the bf16 pair on
+     leaf_rows_bf16_live_kernel) is timed in turns with its first design
+     (leaf_rows_first_design: the _pr4 entry points), which must be
+     bit-identical too; then the SASS instructions a record test of the
+     seven f32 entry points and their first designs;
   3i. bf16 frames: the inputs of every leaf-row call of an untimed 512x512
      1-spp bitsh frame (64 calls) and bits2h frame (128: round A and the
      carry-in round B), captured by a spy: the new bf16 kernel
@@ -93,6 +100,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      sums a spp; then the SASS of the step loop of both designs (by entry
      name): instructions, packed bf16 instructions and F2F conversions a
      record test, and ptxas registers and spills;
+  3m. f32 frames: the same for the leaf-row calls of an untimed 512x512
+     1-spp frame of each of F32_FRAMES (bitsi, bitsw, bitswi: 64 calls;
+     bits2, bits2i, bits2w, bits2wi: 128, round A and the carry-in round
+     B): the live kernel bit-identical to the plain version and to its
+     first design on every call, timed in turns, with each call's entry
+     point, width, live share and bound, and the sums a spp by entry
+     point;
   3j. stack frame: the inputs of every stream-walk call of an untimed
      512x512 1-spp stack bench frame (64 calls), captured by a spy: the new
      stack kernel bit-identical to its first design on every call (visits
@@ -105,6 +119,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      to its first design on every call and to the plain version on
      PLAIN_WAVES, timed in turns, with each call's width, live
      share, rows a packet and bound, and the sums a spp;
+  3l. binary frame: the inputs of every binary-walk call of an untimed
+     512x512 1-spp use_wide=False bench frame (64 calls), captured by a
+     spy: the new kernel bit-identical to its first design on every call
+     (counts included) and to the plain version on PLAIN_WAVES, the two
+     timed in turns, with each call's width, live share and nodes and
+     triangles a packet (and the bound where the plain version ran), and
+     the sums a spp;
   4e. bits benches: one 512x512 @ 8 spp frame at phase 4's seeds through
      each algo of BITS_ALGOS (frame time, rays/s, energy, launches per
      entry point, peak memory): those of EXACT_ALGOS within 0.1% of
@@ -283,19 +304,26 @@ XF_FLOPS = 33      # one ray into one instance's object space (origin + dir)
 VARIANTS = [k for k in leaf_rows.ENTRY_POINTS if k not in ("leaf_rows_closest", "leaf_rows_any")]
 CARRY_ROWS = bits.BITS_REFINE_ROWS
 # The first designs, kept as yardsticks that no algo reaches: the f32
-# pair's (phase 3), the bf16 pair's (3e, 3i; leaf_rows.leaf_rows_first_design)
-# and the skip walk's (3c, 3f, 3g; stream_walk.stream_walk_skip_pr3, whose
-# launches count under the entry points stream_walk_skip_*).
-F32_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.LIVE_ENTRY_POINTS)
-BF16_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.BF16_ENTRY_POINTS)
+# pair's (phase 3), the other entry points' (3e, 3i, 3m;
+# leaf_rows.leaf_rows_first_design) and the skip walk's (3c, 3f, 3g;
+# stream_walk.stream_walk_skip_pr3, whose launches count under the entry
+# points stream_walk_skip_*).
+PAIR = ("leaf_rows_closest", "leaf_rows_any")
+F32_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in PAIR)
+VARIANT_FIRST = tuple(leaf_rows.FIRST_DESIGNS[k] for k in VARIANTS)
 SKIP_FIRST = ("stream_walk_skip_closest", "stream_walk_skip_any")
-# ... and the stack walk's (3c, 3j; stream_walk.stream_walk_stack_pr3) and
-# the instanced rows' (3b, 3k; inst_rows.inst_rows_first_design).
+# ... the stack walk's (3c, 3j; stream_walk.stream_walk_stack_pr3), the
+# instanced rows' (3b, 3k; inst_rows.inst_rows_first_design) and the binary
+# walk's (3d, 3l; bvh_walk.bvh_walk_pr3).
 STACK_FIRST = _build.STACK_PR3_ENTRY_POINTS
 INST_FIRST = tuple(inst_rows.FIRST_DESIGNS.values())
-# Phase 3i: the bf16 frames replayed, and the 1 spp frame's leaf-row calls
-# each (32 waves, closest and shadow; bits2h rounds A and B).
+BVH_FIRST = tuple(bvh_walk.FIRST_DESIGNS.values())
+# Phases 3i and 3m: the bf16 frames and the f32 bits frames replayed, and the
+# 1 spp frame's leaf-row calls each (32 waves, closest and shadow; bits2h
+# and bits2 rounds A and B).
 BF16_FRAMES = {"bitsh": 64, "bits2h": 128}
+F32_FRAMES = {"bitsi": 64, "bitsw": 64, "bitswi": 64, "bits2": 128, "bits2i": 128, "bits2w": 128,
+              "bits2wi": 128}
 # Phase 4e: the bits algos timed at full depth, those whose image is
 # expected bit-equal to bitsru8's up to exact-t ties, and the 1 spp frames
 # that drive the remaining carry-in entry points.  Phase 5e: kernel vs plain.
@@ -327,10 +355,10 @@ SCHEDULES = ("skip2", "ilv2", "ilv4", "spec2", "spec4", "specb4", "specb8")
 SCHEDULE_BENCH = ("skip2", "ilv4", "spec4", "specb8")
 SCHEDULE_PARITY = ("skip2", "ilv2", "spec2", "specb4")
 SCHEDULE_OF = {"ilv": "ilv4", "spec": "spec4", "specb": "specb8"}
-# Phases 3h, 3j and 3k: the waves of a replayed frame that the plain
-# version also runs on (1.4-3.4 s a full-width call of the plain spec and
-# stack walks): the first two, full width, and the first and last of the
-# narrow tail.
+# Phases 3h, 3j, 3k and 3l: the waves of a replayed frame that the plain
+# version also runs on (1.4-3.4 s a full-width call of the plain spec,
+# stack and binary walks): the first two, full width, and the first and
+# last of the narrow tail.
 PLAIN_WAVES = (0, 1, 16, 31)
 # Phase 6: one plane-form record test, counted from dep_micro.cu: den 5,
 # num 6, the division 1, the hit point 6, u 6, v 6, then |den| and 7
@@ -616,8 +644,7 @@ def _bench_waves(scene, dev, w, h):
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
     calls = _spy(bits, "leaf_rows", scene, cfg, cam, dev)
     for args, kw in calls:
-        if len(args) != 6 or leaf_rows.entry_point(**kw, trim=bool(args[5])) \
-                not in leaf_rows.LIVE_ENTRY_POINTS:
+        if len(args) != 6 or leaf_rows.entry_point(**kw, trim=bool(args[5])) not in PAIR:
             raise AssertionError(f"the bench frame called leaf_rows with {len(args)} {kw}")
     return _by_wave(calls, lambda args: args[5])
 
@@ -733,7 +760,7 @@ def phase_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
     say(f"[3 kernel] one {w}x{h} spp's leaf-row calls: kernel {total['new']:.3f} ms, "
         f"first design {total['pr1']:.3f} ms, bound {total['bound']:.3f} ms")
     if dev.type == "cuda":
-        _leaf_sass(say, leaf_rows.LIVE_ENTRY_POINTS + F32_FIRST, "3 kernel")
+        _leaf_sass(say, PAIR + F32_FIRST, "3 kernel")
     return out
 
 
@@ -889,7 +916,19 @@ def phase_stream_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
     return out
 
 
+def _bvh_turns(args, reps: int, dev: torch.device) -> dict:
+    """ms of the binary walk ("new") and its first design ("pr3") on one
+    call, timed in turns."""
+    return _in_turns({"pr3": lambda: bvh_walk.bvh_walk_pr3(*args),
+                      "new": lambda: bvh_walk.bvh_walk(*args)}, reps, dev)
+
+
 def phase_bvh_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
+    """The binary walk (bvh_walk_{closest,any}) and its first design
+    (bvh_walk_pr3) against the plain version on phase 3c's four ray sets in
+    1024-ray packets: hits and per-packet counts bit-identical, or the
+    phase fails; the two timed in turns; the SASS a slab and a triangle test
+    of both."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
@@ -903,18 +942,110 @@ def phase_bvh_kernel(dev: torch.device, w: int = W, h: int = H) -> dict:
         rays, a = stream.pack_rays(o, d, tm, act, blk)
         args = (tr.nodes, tr.tris, tr.n_nodes, rays, a, any_hit)
         got = bvh_walk.bvh_walk(*args)
+        first = bvh_walk.bvh_walk_pr3(*args)
         work = torch.zeros(a.shape[0] // blk, 2, dtype=torch.int64, device=dev)
         want, p_ms = _time_once(lambda: bvh_walk.bvh_walk_plain(*args, work=work), dev)
-        k_ms = _time_ms(lambda: bvh_walk.bvh_walk(*args), 10, dev)
+        if not (_bits_same(got, want) and _bits_same(first, want)):
+            raise AssertionError(f"binary {label}: a binary walk design differs from the plain "
+                                 f"version")
+        t = _bvh_turns(args, 10, dev)
         counts = want[4].sum(0, dtype=torch.int64).tolist()  # nodes, triangles
         nbytes = _nbytes(tr.nodes, tr.tris, rays, a, *got)
-        name = f"bvh_walk_{'any' if any_hit else 'closest'}"
-        _walk_record(out, name, label, got, want, k_ms, p_ms, work.sum(0).tolist(), nbytes,
+        name = bvh_walk.ENTRY_POINTS[int(any_hit)]
+        _walk_record(out, name, label, got, want, t["new"], p_ms, work.sum(0).tolist(), nbytes,
                      "[3d binary]")
+        _walk_record(out, bvh_walk.FIRST_DESIGNS[name], label, first, want, t["pr3"], p_ms,
+                     work.sum(0).tolist(), nbytes, "[3d binary] first design")
         g = want[4].shape[0]
-        say(f"[3d binary]   per packet: mean {counts[0] / g:.1f} nodes, "
-            f"{counts[1] / g:.1f} triangles")
+        say(f"[3d binary] {label}: new {t['new']:.3f} ms, first design (bvh_walk_pr3) "
+            f"{t['pr3']:.3f} ms ({t['pr3'] / t['new']:.2f}x), both bit-identical; per packet: "
+            f"mean {counts[0] / g:.1f} nodes, {counts[1] / g:.1f} triangles, live "
+            f"{float(a.float().mean()):.1%}")
+    if dev.type == "cuda":
+        _bvh_sass(say, (*bvh_walk.ENTRY_POINTS, *BVH_FIRST), "3d binary")
     return out
+
+
+# Rays a thread of each binary walk kernel holds and tests in its one
+# triangle loop: two in bvh_walk_live.cu and in the first design (kRays).
+BVH_RAYS = 2
+
+
+def _bvh_sass(say, entries, label: str) -> None:
+    """SASS instructions a triangle test and a slab test of the binary walk
+    kernels of ``entries`` (found by entry name), with their ptxas
+    registers: the triangle loop is the innermost loop that holds a
+    MUFU.RCP, its instructions over the rays a thread tests in it; the
+    step loop is the largest loop, and its instructions outside the loops
+    nested in it over the rays a thread holds are a slab test with the
+    step's vote, cursor and staging.  A static count: the division's and
+    the redo's rare paths count once."""
+    regs = _ptxas_regs()
+    for entry in entries:
+        loops = _visit.loop_bodies(entry)
+        rcp = [x for x in loops if any(o.startswith("MUFU.RCP") for o in x[2])]
+        tri = min(rcp, key=lambda x: len(x[2]))
+        step = max(loops, key=lambda x: len(x[2]))
+        inner = sum(len(x[2]) for x in loops if x is not step and step[0] <= x[0]
+                    and x[1] <= step[1] and not any(y is not x and y is not step and y[0] <= x[0]
+                                                    and x[1] <= y[1] for y in loops))
+        say(f"[{label}] SASS {entry}: triangle loop {len(tri[2])} instructions for "
+            f"{BVH_RAYS} rays = {len(tri[2]) / BVH_RAYS:.1f} a triangle test; step loop "
+            f"{len(step[2])} instructions, {len(step[2]) - inner} outside its nested loops = "
+            f"{(len(step[2]) - inner) / BVH_RAYS:.1f} a slab test with the step; ptxas "
+            f"{regs.get(_visit.kernel_name(entry), 'not found')}")
+
+
+def phase_bvh_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
+    """Every binary-walk call of an untimed 1-spp use_wide=False bench frame
+    (64: 32 waves, closest and shadow rays): the new kernel bit-identical
+    to its first design on every call (counts included) and to the plain
+    version on PLAIN_WAVES (where the plain version's tally gives the
+    bound); the two timed in turns, with each call's width, live share and
+    visits a packet, and the sums a spp."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS, use_wide=False)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    calls = _spy(bvh_walk, "bvh_walk", scene, cfg, cam, dev)
+    for args, kw in calls:
+        if kw or len(args) != 6:
+            raise AssertionError(f"the binary frame called bvh_walk with {len(args)} {kw}")
+    waves = _by_wave(calls, lambda args: args[5])
+    total = {"new": 0.0, "pr3": 0.0, "bound": 0.0}
+    bounded = 0
+    for wave, kind, args in waves:
+        got = bvh_walk.bvh_walk(*args)
+        if not _bits_same(got, bvh_walk.bvh_walk_pr3(*args)):
+            raise AssertionError(f"binary wave {wave} {kind}: the binary walk designs disagree")
+        a = args[4]
+        g = a.shape[0] // bvh_walk.BLOCK
+        plain = ""
+        if wave in PLAIN_WAVES:
+            work = torch.zeros(g, 2, dtype=torch.int64, device=dev)
+            want, p_ms = _time_once(lambda: bvh_walk.bvh_walk_plain(*args, work=work), dev)
+            if not _bits_same(got, want):
+                raise AssertionError(f"binary wave {wave} {kind}: the kernel differs from the "
+                                     f"plain version")
+            work = work.sum(0).tolist()
+            bound_ms, bound_by = _bound(work[0] * SLAB_FLOPS + work[1] * MT_FLOPS,
+                                        _nbytes(*args[:2], *args[3:5], *got))
+            total["bound"] += bound_ms
+            bounded += 1
+            plain = (f", plain {p_ms:.1f} ms (bit-identical), bound {bound_ms:.4f} ms "
+                     f"({bound_by})")
+        t = _bvh_turns(args, reps, dev)
+        for k in ("new", "pr3"):
+            total[k] += t[k]
+        v = got[4].float()
+        say(f"[3l binary frame] wave {wave:2d} {kind:7s} width {a.shape[0]:6d} ({g} packets), "
+            f"live {float(a.float().mean()):6.1%}, bit-identical to the first design, new "
+            f"{t['new']:.4f} ms, first design {t['pr3']:.4f} ms ({t['pr3'] / t['new']:.2f}x); "
+            f"nodes mean {float(v[:, 0].mean()):.1f} max {int(v[:, 0].max())}, triangles mean "
+            f"{float(v[:, 1].mean()):.1f}{plain}")
+    say(f"[3l binary frame] one spp's {len(waves)} walk calls: new {total['new']:.3f} ms, "
+        f"first design {total['pr3']:.3f} ms ({total['pr3'] / total['new']:.2f}x); bound of "
+        f"the {bounded} calls the plain version ran {total['bound']:.3f} ms")
 
 
 def _render(scene, cfg, cam, dev, total_samples, calls):
@@ -1029,7 +1160,7 @@ def phase_walk_bench(dev: torch.device, ref_img, w: int = W, h: int = H,
             if k <= 0 and dev.type == "cuda":
                 raise AssertionError(f"{name} was never launched by the {walk} render")
         first = ""
-        yardsticks = {"skip": SKIP_FIRST, "stack": STACK_FIRST}.get(walk, ())
+        yardsticks = {"skip": SKIP_FIRST, "stack": STACK_FIRST, "binary": BVH_FIRST}[walk]
         if yardsticks:  # the first design is a yardstick: no frame launches it
             launches.update({k: counts[k] for k in yardsticks})
             first = f" (the first design's {dict((k, counts[k]) for k in yardsticks)})"
@@ -1207,6 +1338,13 @@ def _bits_kw(name: str) -> dict:
     return dict(record=record, merge=merge, precision=precision)
 
 
+def _record_ops(kw) -> tuple:
+    """(f32, bf16) operations of one record test of a leaf-row call's kind."""
+    return {("bw", "f32"): (BW_FLOPS, 0), ("mt", "f32"): (MT_FLOPS, 0),
+            ("mt", "bf16"): (MT_FLOPS - MT_BF16_FLOPS, MT_BF16_FLOPS)}[
+                kw.get("record", "mt"), kw.get("precision", "f32")]
+
+
 def phase_variants(dev: torch.device, w: int = W, h: int = H) -> dict:
     scene = compile_scene(builtin.make_indoor_scene(), dev)
     cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
@@ -1241,39 +1379,34 @@ def phase_variants(dev: torch.device, w: int = W, h: int = H) -> dict:
                 if not all(torch.equal(x, y) for x, y in zip(got, whole)):
                     raise AssertionError(f"{name} {label}: round A + carry-in differs from "
                                          f"one call over the whole lists")
-            turns = ""
-            if name in leaf_rows.BF16_ENTRY_POINTS:  # the new design and the first in turns
-                first = lambda: leaf_rows.leaf_rows_first_design(  # noqa: E731
-                    *args, precision="bf16", carry=carry)
-                if not _bits_same(first(), want):
-                    raise AssertionError(f"{name} {label}: the first design differs from the "
-                                         f"plain version")
-                t = _in_turns({"pr4": first,
-                               "new": lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw)},
-                              10, dev)
-                k_ms = t["new"]
-                turns = (f", first design {t['pr4']:.3f} ms ({t['pr4'] / k_ms:.2f}x), "
-                         f"bit-identical")
-            else:
-                k_ms = _time_ms(lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw), 10, dev)
+            # the live design and the first in turns
+            first = lambda: leaf_rows.leaf_rows_first_design(  # noqa: E731
+                *args, carry=carry, **kw)
+            if not _bits_same(first(), want):
+                raise AssertionError(f"{name} {label}: the first design differs from the "
+                                     f"plain version")
+            t = _in_turns({"pr4": first,
+                           "new": lambda: leaf_rows.leaf_rows(*args, carry=carry, **kw)},
+                          10, dev)
+            k_ms = t["new"]
             rows = torch.where(nr < 0, table.shape[0], nr)
             tests = float((rows * live).sum()) * 8
-            f32_ops, bf16_ops = {("bw", "f32"): (BW_FLOPS, 0),
-                                 ("mt", "f32"): (MT_FLOPS, 0),
-                                 ("mt", "bf16"): (MT_FLOPS - MT_BF16_FLOPS, MT_BF16_FLOPS)}[
-                                     kw["record"], kw["precision"]]
+            f32_ops, bf16_ops = _record_ops(kw)
             nbytes = _nbytes(*args[:4]) + 16 * rays.shape[1] * (2 if carry else 1)
             bound_ms, bound_by = _bound(tests * f32_ops, nbytes, tests * bf16_ops)
             resumed = f", resumed after round A's first {k} rows" if carry is not None else ""
-            say(f"[3e variants] {name} {label}: bit-identical, kernel {k_ms:.3f} ms{turns}, "
-                f"plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests:.4g} "
-                f"tests{resumed})")
+            say(f"[3e variants] {name} {label}: bit-identical, kernel {k_ms:.3f} ms, first "
+                f"design {t['pr4']:.3f} ms ({t['pr4'] / k_ms:.2f}x, bit-identical), plain "
+                f"{p_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests:.4g} "
+                f"tests{resumed}), live {float(live.sum()) / rays.shape[1]:.1%}")
             if label == "bounce/closest":
                 out[name].update(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=bound_by)
-                if turns:
-                    out[leaf_rows.FIRST_DESIGNS[name]] = dict(
-                        max_abs_err=0.0, ms=t["pr4"], plain_ms=p_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+                out[leaf_rows.FIRST_DESIGNS[name]] = dict(
+                    max_abs_err=0.0, ms=t["pr4"], plain_ms=p_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
+    if dev.type == "cuda":
+        seven = [k for k in VARIANTS if k not in leaf_rows.BF16_ENTRY_POINTS]
+        _leaf_sass(say, (*seven, *(leaf_rows.FIRST_DESIGNS[k] for k in seven)), "3e variants")
     return out
 
 
@@ -1287,32 +1420,33 @@ def _leaf_calls(scene, dev, w, h, algo):
     return _spy(bits, "leaf_rows", scene, cfg, cam, dev)
 
 
-def phase_bf16_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
-    """Every leaf-row call of an untimed 512x512 1-spp frame of bitsh (64:
-    32 waves, closest and shadow rays) and of bits2h (128: round A and the
-    carry-in round B of each): the new bf16 kernel bit-identical to its
+def _leaf_frames(dev: torch.device, frames: dict, label: str, w: int, h: int,
+                 reps: int) -> None:
+    """Every leaf-row call of an untimed w x h 1-spp frame of each algo of
+    ``frames`` (algo: its call count): the live kernel bit-identical to its
     first design and to the plain version, the two designs timed in turns,
-    with each call's width, live share and bound, and the sums a spp.
-    Then the SASS counts of both designs."""
+    with each call's entry point, width, live share and bound, and the sums
+    a spp, by entry point."""
     scene = compile_scene(builtin.make_indoor_scene(), dev)
-    for algo, n_calls in BF16_FRAMES.items():
+    for algo, n_calls in frames.items():
         calls = _leaf_calls(scene, dev, w, h, algo)
         if len(calls) != n_calls:
             raise AssertionError(f"the {algo} frame made {len(calls)} leaf-row calls, not "
                                  f"{n_calls}")
-        total = {"new": 0.0, "pr4": 0.0, "bound": 0.0}
+        totals = {}
         for i, (args, kw) in enumerate(calls):
             carry = kw.get("carry")
-            if kw.get("precision") != "bf16" or len(args) != 6 or args[5]:
-                raise AssertionError(f"{algo} call {i}: not a bf16 closest-hit call ({kw})")
+            if len(args) != 6:
+                raise AssertionError(f"{algo} call {i}: {len(args)} arguments ({kw})")
+            name = leaf_rows.entry_point(**{k: v for k, v in kw.items() if k != "carry"},
+                                         carry=carry is not None, trim=bool(args[5]))
             got = leaf_rows.leaf_rows(*args, **kw)
-            old = leaf_rows.leaf_rows_first_design(*args, precision="bf16", carry=carry)
+            old = leaf_rows.leaf_rows_first_design(*args, **kw)
             want, p_ms = _time_once(lambda: leaf_rows.leaf_rows_plain(*args, **kw), dev)
             if not (_bits_same(got, want) and _bits_same(old, want)):
-                raise AssertionError(f"{algo} call {i}: a bf16 design differs from the plain "
-                                     f"version")
-            t = _in_turns({"pr4": lambda: leaf_rows.leaf_rows_first_design(
-                               *args, precision="bf16", carry=carry),
+                raise AssertionError(f"{algo} call {i} ({name}): a design differs from the "
+                                     f"plain version")
+            t = _in_turns({"pr": lambda: leaf_rows.leaf_rows_first_design(*args, **kw),
                            "new": lambda: leaf_rows.leaf_rows(*args, **kw)}, reps, dev)
             table, lists, n_rows, rays = args[:4]
             start = carry[0] if carry is not None else rays[6]
@@ -1320,23 +1454,41 @@ def phase_bf16_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -
             tests = float((torch.where(n_rows < 0, table.shape[0], n_rows) * live).sum()) * 8
             nbytes = _nbytes(table, lists, n_rows, rays) + 16 * rays.shape[1] * (
                 2 if carry is not None else 1)
-            bound_ms, bound_by = _bound(tests * (MT_FLOPS - MT_BF16_FLOPS), nbytes,
-                                        tests * MT_BF16_FLOPS)
-            for k in ("new", "pr4"):
+            f32_ops, bf16_ops = _record_ops(kw)
+            bound_ms, bound_by = _bound(tests * f32_ops, nbytes, tests * bf16_ops)
+            total = totals.setdefault(name, {"new": 0.0, "pr": 0.0, "bound": 0.0, "calls": 0})
+            for k in ("new", "pr"):
                 total[k] += t[k]
             total["bound"] += bound_ms
-            kind = "round B" if carry is not None else "round A" if algo == "bits2h" else ""
-            say(f"[3i bf16 frame] {algo} call {i:3d} {kind:7s} "
+            total["calls"] += 1
+            say(f"[{label}] {algo} call {i:3d} {name:31s} "
                 f"width {rays.shape[1]:6d}, live {float(live.sum()) / rays.shape[1]:6.1%}, "
-                f"bit-identical, new {t['new']:.4f} ms, first design {t['pr4']:.4f} ms "
-                f"({t['pr4'] / t['new']:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, "
+                f"bit-identical, new {t['new']:.4f} ms, first design {t['pr']:.4f} ms "
+                f"({t['pr'] / t['new']:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, "
                 f"{tests:.4g} tests), plain {p_ms:.1f} ms, mean list "
                 f"{float(n_rows.clamp(min=0).float().mean()):.1f} rows of {lists.shape[1]}")
-        say(f"[3i bf16 frame] {algo}: one {w}x{h} spp's {len(calls)} leaf-row calls: new "
-            f"{total['new']:.3f} ms, first design {total['pr4']:.3f} ms "
-            f"({total['pr4'] / total['new']:.2f}x), bound {total['bound']:.3f} ms")
+        for name, total in totals.items():
+            say(f"[{label}] {algo}: one {w}x{h} spp's {total['calls']} {name} calls: new "
+                f"{total['new']:.3f} ms, first design {total['pr']:.3f} ms "
+                f"({total['pr'] / total['new']:.2f}x), bound {total['bound']:.3f} ms")
+
+
+def phase_bf16_frame(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
+    """Every leaf-row call of an untimed 512x512 1-spp frame of bitsh (64:
+    32 waves, closest and shadow rays) and of bits2h (128: round A and the
+    carry-in round B of each), as ``_leaf_frames``; then the SASS counts of
+    both bf16 designs."""
+    _leaf_frames(dev, BF16_FRAMES, "3i bf16 frame", w, h, reps)
     if dev.type == "cuda":
-        _leaf_sass(say, leaf_rows.BF16_ENTRY_POINTS + BF16_FIRST, "3i bf16 frame")
+        _leaf_sass(say, leaf_rows.BF16_ENTRY_POINTS
+                   + tuple(leaf_rows.FIRST_DESIGNS[k] for k in leaf_rows.BF16_ENTRY_POINTS),
+                   "3i bf16 frame")
+
+
+def phase_f32_frames(dev: torch.device, w: int = W, h: int = H, reps: int = 3) -> None:
+    """The same for the f32 bits frames of F32_FRAMES, which drive each of
+    the seven f32 entry points beyond the pair."""
+    _leaf_frames(dev, F32_FRAMES, "3m f32 frames", w, h, reps)
 
 
 def _entry_points_of(algo: str) -> list[str]:
@@ -1440,7 +1592,7 @@ def phase_bits_bench(dev: torch.device, w: int = W, h: int = H, spp: int = BITS_
         say(f"[4e bits] {algo}: {w}x{h} @ 1 spp, frame {dt:.3f} s, energy {energy!r} "
             f"(bitsru8 {float(ref1.sum())!r}), launches {counts}; vs bitsru8: {gate}")
     mine = {k: launches[k] for k in VARIANTS if k in launches}
-    for k in BF16_FIRST:  # yardsticks: no frame above launched them
+    for k in VARIANT_FIRST:  # yardsticks: no frame above launched them
         mine[k], source[k] = launches.get(k, 0), "the bits frames"
     say("[4e bits] launches for the kernels line: "
         + ", ".join(f"{k} {v} ({source[k]})" for k, v in mine.items()))
@@ -2193,7 +2345,7 @@ KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     **{name: ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287")
-       for name in (*VARIANTS, *BF16_FIRST)},
+       for name in (*VARIANTS, *VARIANT_FIRST)},
     **{name: ("surf_tpu_torch/csrc/inst_rows.cu", "surf_tpu/accel/pallas_instanced.py:260")
        for name in (*inst_rows.FIRST_DESIGNS, *INST_FIRST)},
     **{f"stream_walk_skip_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
@@ -2205,8 +2357,11 @@ KERNELS = {
                                   "surf_tpu/accel/pallas_wide.py:672") for m in ("closest", "any")},
     **{name: ("surf_tpu_torch/csrc/stream_walk.cu", "surf_tpu/accel/pallas_wide.py:672")
        for name in STACK_FIRST},
-    **{f"bvh_walk_{m}": ("surf_tpu_torch/csrc/bvh_walk.cu",
-                         "surf_tpu/accel/pallas_traverse.py:193") for m in ("closest", "any")},
+    # the binary walk and its first design, the yardstick
+    **{name: ("surf_tpu_torch/csrc/bvh_walk_live.cu", "surf_tpu/accel/pallas_traverse.py:193")
+       for name in bvh_walk.ENTRY_POINTS},
+    **{name: ("surf_tpu_torch/csrc/bvh_walk.cu", "surf_tpu/accel/pallas_traverse.py:193")
+       for name in BVH_FIRST},
     # ilv serves skip2 (_walk_block_pair, pallas_wide.py:314) as ilv2, and
     # skip (_walk_block, :120) as ilv1; stream_walk_skip_* are its first
     # design, the yardstick
@@ -2271,8 +2426,10 @@ def main() -> int:
     kernels.update(timed("3d binary", phase_bvh_kernel, dev))
     kernels.update(timed("3e variants", phase_variants, dev))
     timed("3i bf16 frame", phase_bf16_frame, dev)
+    timed("3m f32 frames", phase_f32_frames, dev)
     timed("3j stack frame", phase_stack_frame, dev)
     timed("3k inst frame", phase_inst_frame, dev)
+    timed("3l binary frame", phase_bvh_frame, dev)
     launches, bench_img = timed("4 bench", phase_bench, dev)
     launches.update(timed("4b twolevelp", phase_twolevelp_bench, dev))
     launches.update(timed("4d walks", phase_walk_bench, dev, bench_img))

@@ -225,7 +225,9 @@ def library() -> ctypes.CDLL:
             # table, lists, cap8, counts, rays, t_max, n_rays, t, r, u, v, stream
             fn.argtypes = [p, p, i, p, p, p, i, p, p, p, p, p]
             fn.restype = i
-        for name in ("bvh_walk_closest", "bvh_walk_any"):
+        from .bvh_walk import ENTRY_POINTS as BVH_ENTRY, FIRST_DESIGNS as BVH_FIRST
+
+        for name in (*BVH_ENTRY, *BVH_FIRST.values()):
             fn = getattr(lib, name)
             # nodes, n_nodes, tris, rays, act, n_rays, t, p, u, v, counts, stream
             fn.argtypes = [p, i, p, p, p, i, p, p, p, p, p, p]
@@ -235,14 +237,15 @@ def library() -> ctypes.CDLL:
                      + tuple(INST_FIRST) + tuple(INST_FIRST.values()) + PARTS_ENTRY_POINTS
                      + COND_ENTRY_POINTS + BODY_ENTRY_POINTS + SPLAT_ENTRY_POINTS
                      + EXTRACT_ENTRY_POINTS + INTERLEAVE_ENTRY_POINTS + SPEC_ENTRY_POINTS
-                     + MXU_ENTRY_POINTS + WALK_KERNELS):
+                     + MXU_ENTRY_POINTS + WALK_KERNELS + BVH_ENTRY
+                     + tuple(BVH_FIRST.values())):
             fn = getattr(lib, f"{name}_kernel")
             fn.argtypes = []
             fn.restype = p
         lib.surf_kernel_name.argtypes = [p, ctypes.POINTER(ctypes.c_char_p)]
         lib.surf_kernel_name.restype = i
         for name in ("leaf_rows_threads_per_block", "inst_rows_threads_per_block",
-                     "stream_walk_threads_per_block", "bvh_walk_threads_per_block"):
+                     "stream_walk_threads_per_block"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         _LIB = lib

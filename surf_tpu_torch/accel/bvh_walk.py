@@ -16,8 +16,12 @@ stops once every active ray has a hit.  Directions are not nudged: 1/0 is
 +-inf, as on the TPU.  The TPU's 64K-ray VMEM chunks are gone: one launch
 covers every packet.
 
-``bvh_walk`` launches the hand-written kernels of ``csrc/bvh_walk.cu`` on
-CUDA tensors and runs ``bvh_walk_plain`` on CPU tensors.
+``bvh_walk`` launches the hand-written kernel of ``csrc/bvh_walk_live.cu``
+on CUDA tensors (live-ray compaction, both successors and a leaf's
+triangles staged while a step runs, one vote a step) and runs
+``bvh_walk_plain`` on CPU tensors.  ``bvh_walk_pr3`` launches the first
+design (``csrc/bvh_walk.cu``) on the same function, to time the two side
+by side; no render path reaches it.
 
 Inputs (all on one device):
   nodes   [Rn, 128] f32   node records (box lo, hi; leaf_first,
@@ -47,8 +51,12 @@ from .stream_walk import nearest_records
 BLOCK = 1024
 MAX_LEAF = 256   # triangles tested per leaf at most (pallas_traverse.py:173-175)
 
-# Kernel launches since the last reset, per entry point of bvh_walk.cu.
-LAUNCHES = {"bvh_walk_closest": 0, "bvh_walk_any": 0}
+# The entry points of bvh_walk_live.cu, and the first design's of
+# bvh_walk.cu (reached only by bvh_walk_pr3).
+ENTRY_POINTS = ("bvh_walk_closest", "bvh_walk_any")
+FIRST_DESIGNS = {"bvh_walk_closest": "bvh_walk_closest_pr3", "bvh_walk_any": "bvh_walk_any_pr3"}
+# Kernel launches since the last reset, per entry point.
+LAUNCHES = dict.fromkeys((*ENTRY_POINTS, *FIRST_DESIGNS.values()), 0)
 
 
 def reset_launches() -> None:
@@ -87,19 +95,34 @@ def bvh_walk(nodes: torch.Tensor, tris: torch.Tensor, n_nodes: int, rays: torch.
     """The binary packet walk of every ray: the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     _check(nodes, tris, n_nodes, rays, act)
-    device = nodes.device
-    if device.type == "cpu":
+    if nodes.device.type == "cpu":
         return bvh_walk_plain(nodes, tris, n_nodes, rays, act, any_hit)
+    return _launch(ENTRY_POINTS[int(any_hit)], nodes, tris, n_nodes, rays, act)
+
+
+def bvh_walk_pr3(nodes: torch.Tensor, tris: torch.Tensor, n_nodes: int, rays: torch.Tensor,
+                 act: torch.Tensor, any_hit: bool = False):
+    """``bvh_walk`` through the first design's kernel (``FIRST_DESIGNS``: a
+    512-thread block a packet, every lane, the node record loaded after
+    each vote).  The same function; the plain version for CPU tensors."""
+    _check(nodes, tris, n_nodes, rays, act)
+    if nodes.device.type == "cpu":
+        return bvh_walk_plain(nodes, tris, n_nodes, rays, act, any_hit)
+    return _launch(FIRST_DESIGNS[ENTRY_POINTS[int(any_hit)]], nodes, tris, n_nodes, rays, act)
+
+
+def _launch(name, nodes, tris, n_nodes, rays, act):
+    """Launch entry point ``name`` on CUDA tensors (checked by ``_check``),
+    or raise."""
+    device = nodes.device
     if device.type != "cuda":
         raise ValueError(f"bvh_walk runs on cpu or cuda, not {device}")
     lib = _build.library()
-    if BLOCK % lib.bvh_walk_threads_per_block():
-        raise ValueError("the kernel's block does not divide a packet")
     if device.index is not None and device.index != torch.cuda.current_device():
         raise ValueError(f"{device} is not the current CUDA device")
-    for name, x in (("nodes", nodes), ("tris", tris), ("rays", rays), ("act", act)):
+    for label, x in (("nodes", nodes), ("tris", tris), ("rays", rays), ("act", act)):
         if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{label} must be contiguous")
     if nodes.data_ptr() % 16 or tris.data_ptr() % 16:
         raise ValueError("nodes and tris must be 16-byte aligned (records are read as float4)")
     n = rays.shape[1]
@@ -108,7 +131,6 @@ def bvh_walk(nodes: torch.Tensor, tris: torch.Tensor, n_nodes: int, rays: torch.
     u = torch.empty(n, dtype=torch.float32, device=device)
     v = torch.empty(n, dtype=torch.float32, device=device)
     counts = torch.empty(n // BLOCK, 2, dtype=torch.int32, device=device)
-    name = "bvh_walk_any" if any_hit else "bvh_walk_closest"
     cuda_stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, name)(
         nodes.data_ptr(), n_nodes, tris.data_ptr(), rays.data_ptr(), act.data_ptr(), n,

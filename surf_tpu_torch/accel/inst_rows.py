@@ -46,12 +46,12 @@ import torch
 from . import _build
 from .leaf_rows import PLAIN_PAIRS, TRIS, merge_scratch, rows_chunk, split_rows
 
-# The first design's kernel on the function of each entry point, reached
-# only through inst_rows_first_design.
-FIRST_DESIGNS = {"inst_rows_closest": "inst_rows_closest_pr2",
-                 "inst_rows_any": "inst_rows_any_pr2"}
+# The entry points of inst_rows_live_kernel, and the first design's kernel
+# on the function of each, reached only through inst_rows_first_design.
+LIVE_ENTRY_POINTS = ("inst_rows_closest", "inst_rows_any")
+FIRST_DESIGNS = {k: k + "_pr2" for k in LIVE_ENTRY_POINTS}
 # Kernel launches since the last reset, per entry point of inst_rows.cu.
-LAUNCHES = dict.fromkeys((*FIRST_DESIGNS, *FIRST_DESIGNS.values()), 0)
+LAUNCHES = dict.fromkeys((*LIVE_ENTRY_POINTS, *FIRST_DESIGNS.values()), 0)
 # The live kernel's grid: about this many blocks, as work items of
 # ``split_rows(n)``-row chunks, and never more work items a packet than its
 # list width has chunks (a sweep's extra rows go to the same items).
@@ -103,8 +103,8 @@ def inst_rows(table: torch.Tensor, lists: torch.Tensor, counts: torch.Tensor,
     if table.device.type == "cpu":
         return inst_rows_plain(table, lists, counts, segs, inv, rays,
                                block_rays, any_hit)
-    return _launch("inst_rows_any" if any_hit else "inst_rows_closest", table, lists,
-                   counts, segs, inv, rays, block_rays)
+    return _launch(LIVE_ENTRY_POINTS[int(any_hit)], table, lists, counts, segs, inv, rays,
+                   block_rays)
 
 
 def inst_rows_first_design(table: torch.Tensor, lists: torch.Tensor, counts: torch.Tensor,
@@ -117,7 +117,7 @@ def inst_rows_first_design(table: torch.Tensor, lists: torch.Tensor, counts: tor
     if table.device.type == "cpu":
         return inst_rows_plain(table, lists, counts, segs, inv, rays,
                                block_rays, any_hit)
-    name = FIRST_DESIGNS["inst_rows_any" if any_hit else "inst_rows_closest"]
+    name = FIRST_DESIGNS[LIVE_ENTRY_POINTS[int(any_hit)]]
     return _launch(name, table, lists, counts, segs, inv, rays, block_rays)
 
 
@@ -150,9 +150,9 @@ def _launch(name, table, lists, counts, segs, inv, rays, block_rays):
     head = (table.data_ptr(), lists.data_ptr(), lists.shape[1], counts.data_ptr(),
             inv.shape[0], segs.data_ptr(), inv.data_ptr(), rays.data_ptr(), n, block_rays)
     outs = (t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr(), i.data_ptr())
-    if name in FIRST_DESIGNS:
+    if name in LIVE_ENTRY_POINTS:
         rows = split_rows(n)
-        keys, arrivals = merge_scratch(torch.device("cuda", torch.cuda.current_device()), n)
+        keys, arrivals = merge_scratch(device, n)
         err = getattr(lib, name)(*head, rows, splits(n, lists.shape[1], rows), *outs,
                                  keys.data_ptr(), arrivals.data_ptr(), stream)
     else:

@@ -8,20 +8,22 @@ the hand-written kernel of ``csrc/leaf_rows.cu``; on a CPU tensor it runs
 ``leaf_rows_plain``, the plain PyTorch version of the same function, which
 the CPU tests exercise and the chip smoke test compares the kernel with.
 
-The f32 sequential Möller–Trumbore closest hit and any-hit trim (the
-entry points ``leaf_rows_closest`` and ``leaf_rows_any``, which every
-``bitsru8`` frame runs) launch ``leaf_rows_live_kernel``: only live rays
-(t_max > 1e-5) are tested, each list's rows are split into work items of
-``split_rows(n)`` rows, and the splits merge through an exact (t, list
-position) key in a scratch that this module allocates once per device and
-size (all zero between calls).  The bf16 sequential closest hit, without
-and with carry-in (``leaf_rows_mt_bf16_closest``,
+Every f32 entry point (``LIVE_ENTRY_POINTS``: the sequential
+Möller–Trumbore closest hit and any-hit trim, ``leaf_rows_closest`` and
+``leaf_rows_any``, which every ``bitsru8`` frame runs, and the
+Baldwin–Weber, ILP and carry-in ones) launches ``leaf_rows_live_kernel``:
+only live rays (start t, t_max or the carry-in t, > 1e-5) are tested, each
+list's rows are split into work items of ``split_rows(n)`` rows, and the
+splits merge through an exact (t, list position) key in a scratch that
+this module keeps per device and stream (``merge_scratch``; all zero
+between calls).  The bf16 sequential closest hit, without and with
+carry-in (``leaf_rows_mt_bf16_closest``,
 ``leaf_rows_mt_bf16_carry_closest``: ``bitsh``, ``bits2h``), launches
-``leaf_rows_bf16_live_kernel``: the same structure, with a start t of
-t_max or the carry-in t, records staged as bf16x2 pairs and the record
-test's polynomial in packed bf16x2 ops.  ``leaf_rows_first_design``
-launches the first design's kernel on the function of any of these four,
-to time the designs side by side; no algo reaches it.
+``leaf_rows_bf16_live_kernel``: the same structure, with records staged as
+bf16x2 pairs and the record test's polynomial in packed bf16x2 ops.
+``leaf_rows_first_design`` launches the first design's kernel on the
+function of any entry point, to time the designs side by side; no algo
+reaches it.
 
 The instantiation is chosen by five arguments, as the TPU kernel's flags
 choose its body:
@@ -65,7 +67,7 @@ SLOT_LANE = {"mt": 9, "bw": 12}
 
 # The plain version tests this many (ray, triangle) pairs per torch op.
 PLAIN_PAIRS = 1 << 24
-# Rows of one work item of leaf_rows_live_kernel (leaf_rows_closest, _any):
+# Rows of one work item of the live kernels:
 # SPLIT_ROWS in a call of at least WIDE_RAYS rays, NARROW_SPLIT_ROWS in a
 # narrower one, which has fewer lists to fill the card with.
 SPLIT_ROWS = 32
@@ -87,23 +89,21 @@ ENTRY_POINTS = {
     "leaf_rows_bw_ilp_carry_closest": ("bw", "ilp", "f32", True, False),
 }
 _NAME_OF = {v: k for k, v in ENTRY_POINTS.items()}
-# The entry points of leaf_rows_live_kernel and of leaf_rows_bf16_live_kernel
-# (both take the split merge's scratch; the bf16 ones also the carry-in).
-LIVE_ENTRY_POINTS = ("leaf_rows_closest", "leaf_rows_any")
+# The entry points of leaf_rows_live_kernel (f32) and of
+# leaf_rows_bf16_live_kernel; both take the split merge's scratch.
 BF16_ENTRY_POINTS = ("leaf_rows_mt_bf16_closest", "leaf_rows_mt_bf16_carry_closest")
-# The first design's kernel on the function of each redesigned entry point
-# (the f32 pair, the bf16 pair), reached only through leaf_rows_first_design.
-FIRST_DESIGNS = {"leaf_rows_closest": "leaf_rows_closest_pr1",
-                 "leaf_rows_any": "leaf_rows_any_pr1",
-                 "leaf_rows_mt_bf16_closest": "leaf_rows_mt_bf16_closest_pr4",
-                 "leaf_rows_mt_bf16_carry_closest": "leaf_rows_mt_bf16_carry_closest_pr4"}
+LIVE_ENTRY_POINTS = tuple(k for k in ENTRY_POINTS if k not in BF16_ENTRY_POINTS)
+# The first design's kernel on the function of each entry point, reached
+# only through leaf_rows_first_design: the f32 pair's (_pr1) and the
+# others' (_pr4).
+FIRST_DESIGNS = {k: k + ("_pr1" if k in ("leaf_rows_closest", "leaf_rows_any") else "_pr4")
+                 for k in ENTRY_POINTS}
 # Kernel launches since the last reset, per entry point of leaf_rows.cu.
 LAUNCHES = dict.fromkeys((*ENTRY_POINTS, *FIRST_DESIGNS.values()), 0)
 
-# The live kernels' merge scratch per device (leaf_rows.cu's and
-# inst_rows.cu's): (keys int64, arrivals int32), zeroed once when allocated
-# and left zero by every launch.  Calls share it, so they must run on one
-# stream at a time (as every render path does).
+# The live kernels' merge scratch (leaf_rows.cu's and inst_rows.cu's) per
+# (device, stream): (keys int64, arrivals int32), zeroed once when allocated
+# and left zero by every launch (``merge_scratch``).
 _SCRATCH: dict = {}
 
 
@@ -164,19 +164,17 @@ def leaf_rows(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
 
 def leaf_rows_first_design(table: torch.Tensor, lists: torch.Tensor, n_rows: torch.Tensor,
                            rays: torch.Tensor, block_rays: int, trim: bool = False, *,
-                           precision: str = "f32", carry=None):
-    """``leaf_rows`` (sequential Möller–Trumbore: f32 without carry, or
-    bf16) through the first design's kernel: one thread per ray, every
-    lane, one block per 256 rays walking the whole list (``FIRST_DESIGNS``).
-    The same function as the entry point it stands beside; the plain version
-    for CPU tensors."""
-    name = entry_point("mt", "seq", precision, carry is not None, trim)
-    if name not in FIRST_DESIGNS:
-        raise ValueError(f"{name} has no first design apart from itself")
+                           record: str = "mt", merge: str = "seq", precision: str = "f32",
+                           carry=None):
+    """``leaf_rows`` through the first design's kernel (``FIRST_DESIGNS``:
+    one thread per ray, every lane, one block per 256 rays walking the whole
+    list).  The same function as the entry point it stands beside; the
+    plain version for CPU tensors."""
+    name = entry_point(record, merge, precision, carry is not None, trim)
     _check(table, lists, n_rows, rays, block_rays, carry)
     if table.device.type == "cpu":
-        return leaf_rows_plain(table, lists, n_rows, rays, block_rays, trim,
-                               precision=precision, carry=carry)
+        return leaf_rows_plain(table, lists, n_rows, rays, block_rays, trim, record=record,
+                               merge=merge, precision=precision, carry=carry)
     return _launch(FIRST_DESIGNS[name], table, lists, n_rows, rays, block_rays, carry)
 
 
@@ -185,14 +183,28 @@ def split_rows(n_rays: int) -> int:
     return SPLIT_ROWS if n_rays >= WIDE_RAYS else NARROW_SPLIT_ROWS
 
 
+def scratch_key(device: torch.device):
+    """The key of ``merge_scratch``'s pair: the CUDA device and the handle of
+    its current stream."""
+    device = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                          else device.index)
+    return device, torch.cuda.current_stream(device).cuda_stream
+
+
 def merge_scratch(device: torch.device, n: int):
-    """The live kernels' merge scratch for n rays: keys [>= n] int64 and
-    arrivals [>= n / 256] int32, zero (a larger call replaces it)."""
-    keys, arrivals = _SCRATCH.get(device, (None, None))
+    """The live kernels' merge scratch for n rays on the current stream of
+    ``device``: keys [>= n] int64 and arrivals [>= n / 256] int32, zero.
+    One pair a (device, stream): the calls on a stream run in order and
+    each leaves the pair zero, and a larger call replaces only its own
+    stream's pair (the caching allocator hands the old one out again on
+    that stream only, after the calls queued before it), so calls on two
+    streams never share a slot."""
+    key = scratch_key(device)
+    keys, arrivals = _SCRATCH.get(key, (None, None))
     if keys is None or keys.numel() < n:
-        keys = torch.zeros(n, dtype=torch.int64, device=device)
-        arrivals = torch.zeros(max(1, n // 256), dtype=torch.int32, device=device)
-        _SCRATCH[device] = keys, arrivals
+        keys = torch.zeros(n, dtype=torch.int64, device=key[0])
+        arrivals = torch.zeros(max(1, n // 256), dtype=torch.int32, device=key[0])
+        _SCRATCH[key] = keys, arrivals
     return keys, arrivals
 
 
@@ -227,7 +239,7 @@ def _launch(name, table, lists, n_rows, rays, block_rays, carry):
     outs = (t.data_ptr(), r.data_ptr(), u.data_ptr(), v.data_ptr())
     c_in = [x.data_ptr() for x in carry] if carry is not None else [None] * 4
     if name in LIVE_ENTRY_POINTS + BF16_ENTRY_POINTS:
-        keys, arrivals = merge_scratch(torch.device("cuda", torch.cuda.current_device()), n)
+        keys, arrivals = merge_scratch(device, n)
         err = getattr(lib, name)(*head, split_rows(n), *c_in, *outs, keys.data_ptr(),
                                  arrivals.data_ptr(), stream)
     else:

@@ -52,7 +52,8 @@ OWN_KERNELS = {"leaf_rows_kernel": "leaf_rows kernel",
                "inst_rows_kernel": "inst_rows kernel",
                "inst_rows_live_kernel": "inst_rows kernel",
                "stream_walk_": "stream_walk kernel",
-               "bvh_walk_kernel": "bvh_walk kernel"}
+               "bvh_walk_kernel": "bvh_walk kernel",
+               "bvh_walk_live_kernel": "bvh_walk kernel"}
 LAYERS = (
     (wi, "ray_generation", "raygen"),
     (wi, "compact_paths", "compaction"),

@@ -1,4 +1,7 @@
-// Binary-BVH skip-link packet walk (use_wide=False).
+// Binary-BVH skip-link packet walk (use_wide=False): the first design,
+// kept as the entry points bvh_walk_closest_pr3 and bvh_walk_any_pr3,
+// reached only by accel/bvh_walk.py bvh_walk_pr3 to time it beside the
+// walk that use_wide=False runs (bvh_walk_live.cu).
 //
 // Replaces surf_tpu/accel/pallas_traverse.py `_traverse_kernel_multiblock`
 // with its `_walk_block`, closest hit and any-hit.  The tree is a DFS
@@ -34,6 +37,7 @@
 
 #include <cuda_runtime.h>
 
+#include "entry.cuh"
 #include "mt.cuh"
 
 namespace {
@@ -44,8 +48,8 @@ constexpr int kThreads = 512;     // threads per block (= per packet)
 constexpr int kRays = kBlock / kThreads;
 constexpr int kMaxLeaf = 256;     // triangles tested per leaf at most
 
-__device__ __forceinline__ float c_min(float a, float b) { return a < b ? a : b; }
-__device__ __forceinline__ float c_max(float a, float b) { return a > b ? a : b; }
+using surf::c_max;
+using surf::c_min;
 
 template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
@@ -174,23 +178,25 @@ int launch(const float* nodes, int n_nodes, const float* tris, const float* rays
 
 }  // namespace
 
-// Plain C entry points for ctypes.  nodes and tris are packed record tables
-// ([rows, 128], 8 records a row); the walk ends at node n_nodes.  rays is
-// [7, n_rays] (ox, oy, oz, dx, dy, dz, t_max) and act [n_rays], n_rays a
-// positive multiple of 1024.  counts is [n_rays / 1024, 2]: nodes visited
-// and triangle records tested per packet.  Returns cudaGetLastError()
-// after the launch.
-extern "C" int bvh_walk_threads_per_block() { return kThreads; }
-
-extern "C" int bvh_walk_closest(const float* nodes, int n_nodes, const float* tris,
+// Plain C entry points for ctypes, with bvh_walk_live.cu's arguments: nodes
+// and tris are packed record tables ([rows, 128], 8 records a row); the
+// walk ends at node n_nodes.  rays is [7, n_rays] (ox, oy, oz, dx, dy, dz,
+// t_max) and act [n_rays], n_rays a positive multiple of 1024.  counts is
+// [n_rays / 1024, 2]: nodes visited and triangle records tested per
+// packet.  Returns cudaGetLastError() after the launch.
+extern "C" int bvh_walk_closest_pr3(const float* nodes, int n_nodes, const float* tris,
                                 const float* rays, const int* act, int n_rays, float* t,
                                 int* p, float* u, float* v, int* counts,
                                 cudaStream_t cs) {
   return launch<false>(nodes, n_nodes, tris, rays, act, n_rays, t, p, u, v, counts, cs);
 }
 
-extern "C" int bvh_walk_any(const float* nodes, int n_nodes, const float* tris,
-                            const float* rays, const int* act, int n_rays, float* t,
-                            int* p, float* u, float* v, int* counts, cudaStream_t cs) {
+extern "C" int bvh_walk_any_pr3(const float* nodes, int n_nodes, const float* tris,
+                                const float* rays, const int* act, int n_rays, float* t,
+                                int* p, float* u, float* v, int* counts, cudaStream_t cs) {
   return launch<true>(nodes, n_nodes, tris, rays, act, n_rays, t, p, u, v, counts, cs);
 }
+
+// The kernel of each entry point (entry.cuh), for the SASS checks.
+SURF_KERNEL_OF(bvh_walk_closest_pr3, bvh_walk_kernel<false>)
+SURF_KERNEL_OF(bvh_walk_any_pr3, bvh_walk_kernel<true>)

@@ -354,8 +354,8 @@ inst_rows_live_kernel(const float* __restrict__ table, const int* __restrict__ l
                    // (never in a real scene): the row again with 1 / a
         best_t = row_t;
         best_pos = row_pos;
-        surf::row_exact(row, q * kTris, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, best_t,
-                        best_pos);
+        surf::row_exact<surf::kMT, false>(row, q * kTris, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                                          best_t, best_pos);
       }
     }
   }

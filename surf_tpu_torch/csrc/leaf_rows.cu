@@ -16,15 +16,16 @@
 // per ray, so the loop is compute-bound once rows are staged on chip;
 // fetching them per ray from L2 would make it bound by L2 bandwidth instead.
 //
-// Two designs.  The closest-hit and any-hit trim entry points of the f32
-// sequential Möller–Trumbore test (leaf_rows_closest, leaf_rows_any), which
-// every bitsru8 frame runs, use leaf_rows_live_kernel, and the bf16 test's
-// pair (leaf_rows_mt_bf16_closest, leaf_rows_mt_bf16_carry_closest: bitsh,
+// Two designs.  Every entry point that an algo reaches runs a live kernel:
+// the f32 ones (leaf_rows_closest, leaf_rows_any, which every bitsru8 frame
+// runs, and leaf_rows_{mt,bw}[_ilp][_carry]_closest: bitsi, bitsw, bitswi,
+// bits2*) leaf_rows_live_kernel, and the bf16 test's pair
+// (leaf_rows_mt_bf16_closest, leaf_rows_mt_bf16_carry_closest: bitsh,
 // bits2h) the same structure with packed bf16x2 arithmetic,
-// leaf_rows_bf16_live_kernel (both below).  The other seven entry points,
-// and the same four as leaf_rows_{closest,any}_pr1 and
-// leaf_rows_mt_bf16{,_carry}_closest_pr4 (kept to time the designs side by
-// side), use leaf_rows_kernel:
+// leaf_rows_bf16_live_kernel (both below).  The first design,
+// leaf_rows_kernel, stays for timing the designs side by side, as
+// leaf_rows_{closest,any}_pr1 and the _pr4 entry points of the other nine
+// (reached only by accel/leaf_rows.py leaf_rows_first_design):
 // one thread per ray, 256 rays per block; a list of block_rays rays
 // (a packet, or one sub-list of it) is served by block_rays / 256 blocks
 // that all walk the list.  Rows are read by row id straight from the table
@@ -71,7 +72,8 @@ constexpr int kTris = 8;      // triangles per row
 constexpr int kThreads = surf::kLiveThreads; // rays per block
 constexpr int kChunk = 32;    // rows staged in shared memory at a time
 
-enum Record { kMT = 0, kBW = 1 };
+using surf::kBW;
+using surf::kMT;
 
 struct Cand {
   float t, u, v;
@@ -224,46 +226,52 @@ int launch(const float* table, int table_rows, const int* lists, int cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-// leaf_rows_live_kernel: the closest hit (kAny false) or the any-hit trim
-// (kAny true) of the f32 sequential Möller–Trumbore test, with the function
-// of leaf_rows_kernel<kMT, false, false, false, kAny> bit for bit.  What held
-// the first design back: every lane did the full work, dead ones too (a
-// dead lane has t_max = -FAR; a frame's later waves and its shadow rays are
-// mostly dead lanes), and one block walked a whole list, so a launch ended
-// with its longest list and the ladder's narrow tail waves left most of the
-// card idle.  So:
+// leaf_rows_live_kernel: the f32 record tests, with the function of
+// leaf_rows_kernel<kRecord, kIlp, false, kCarry, kAny> bit for bit: the
+// sequential Möller–Trumbore closest hit and any-hit trim (row 1), and the
+// seven entry points of Baldwin–Weber (kRecord kBW), the ILP merge (kIlp)
+// and the carry-in (kCarry).  What held the first design back: every lane
+// did the full work, dead ones too (a dead lane has t_max = -FAR; a frame's
+// later waves and its shadow rays are mostly dead lanes), and one block
+// walked a whole list, so a launch ended with its longest list and the
+// ladder's narrow tail waves left most of the card idle.  So:
 //
-// 1. Live-ray compaction.  A lane is live when its t_max > 1e-5 (NaN is not
-//    live); a dead lane fails `t >= eps & t < t_max` for every record, so
-//    its result is its start value (t_max, -1, 0, 0), which the block of
-//    slice 0, split 0 of its list writes.  Each block counts its list's
-//    live lanes with one block scan and takes the live lanes of rank
-//    [256 s, 256 s + 256) for its slice s; a slice with none exits.
+// 1. Live-ray compaction.  A lane's start t is t_max, or t_in with
+//    carry-in; it is live when that is above 1e-5 (NaN is not live): a
+//    start t <= 1e-5 fails `t >= eps & t < best_t` for every record, so
+//    the lane's result is its start value, (t_max, -1, 0, 0) or (t_in,
+//    r_in, u_in, v_in), which the block of slice 0, split 0 of its list
+//    writes.  Each block counts its list's live lanes with one block scan
+//    and takes the live lanes of rank [256 s, 256 s + 256) for its slice
+//    s; a slice with none exits.
 // 2. Row-split work items.  The grid is (lists x slices, splits): split y
 //    tests rows [y K, y K + K) of the list (K = split_rows, staged kChunk
 //    rows at a time); the host sizes the splits from max(cap, table rows),
 //    so it never reads n_rows, and a split past the list's rows exits.
 //    Split 0 always takes part, so a list of 0 rows still writes its rays.
 // 3. An exact merge.  The sequential result is the least (t, list position
-//    x 8 + j) over the hits below t_max.  A split's running best gives its
-//    share of that; the splits of a list merge through a 64-bit atomicMax
-//    of the inverted key (float bits of t above the position: t >= 1e-5 > 0,
-//    so the bits order as the values) into a per-call scratch (keys[ray],
-//    0 = no hit), and the last split to arrive (a counter and
-//    __threadfence, the threadfence-reduction pattern) reads the key,
-//    resets it and the counter to 0, recomputes u and v with the same
-//    mt_hit on the winning record (same ops, same bits) and reads r from
-//    its lane 9.  The trim keeps only t: a 32-bit key.  A list of one split
-//    skips the scratch.  One launch a call: the scratch is all zero before
-//    and after it.
+//    x 8 + j) over the hits below the start t; the ILP merge's is the same
+//    (its min-tree keeps the first least t of a row, its strict < the first
+//    such row).  A split's running best gives its share of that; the
+//    splits of a list merge through a 64-bit atomicMax of the inverted key
+//    (float bits of t above the position: t >= 1e-5 > 0, so the bits order
+//    as the values) into a per-call scratch (keys[ray], 0 = no hit), and
+//    the last split to arrive (a counter and __threadfence, the
+//    threadfence-reduction pattern) reads the key, resets it and the
+//    counter to 0, recomputes u and v with the record's own test (mt_hit or
+//    bw_hit, same ops, same bits) on the winning record and reads r from
+//    its slot lane.  The trim keeps only t: a 32-bit key.  A list of one
+//    split skips the scratch.  One launch a call: the scratch is all zero
+//    before and after it.
 // 4. Inside a block: a record is read as three float4 (lanes 0-11, LDS.128
 //    broadcasts), and only (t, position) is carried through the loop.  The
-//    record test takes 1 / a by the in-range path of nvcc's reciprocal
-//    (mt.cuh rcp_in_range: the same bits for |a| < 2^126) without nvcc's
-//    per-test range check and branch; a row in which some |a| >= 2^126
-//    (or inf) runs again from its start with the IEEE division.
-// The compaction, the merge and the exact row are live_rows.cuh's, shared
-// with inst_rows.cu's live kernel.
+//    record test takes 1 / a (Baldwin–Weber: 1 / den) by the in-range path
+//    of nvcc's reciprocal (mt.cuh rcp_in_range: the same bits for |a| <
+//    2^126) without nvcc's per-test range check and branch; a row in which
+//    some |a| >= 2^126 (or inf) runs again from its start with the IEEE
+//    division.
+// The compaction, the record test, the exact row and the merge are
+// live_rows.cuh's, shared with inst_rows.cu's live kernel.
 
 // A live kernel's block (points 1 and 2 above): list list_id, whose lanes
 // start at first, its slice of the list's live lanes (slices of them a
@@ -304,9 +312,64 @@ __device__ __forceinline__ void write_start(size_t at, float t0, const int* __re
   v_out[at] = kCarry ? v_in[at] : 0.0f;
 }
 
-// t_in, r_in, u_in and v_in are not read: the kernel takes them to share
-// leaf_rows_bf16_live_kernel's signature and launcher.
-template <bool kAny>
+// The ILP merge of a staged row: each record tested against +inf (a failed
+// test counts as t = +inf), the left-preferring min-tree
+// ((0,1),(2,3)),((4,5),(6,7)) over (t, j), and one strict < against
+// best_t.  Returns whether some record's reciprocal left the in-range path.
+template <int kRecord>
+__device__ __forceinline__ bool ilp_row(const float4* row, int pos0, float ox, float oy,
+                                        float oz, float dx, float dy, float dz, float& best_t,
+                                        int& best_pos) {
+  float t8[kTris];
+  bool wide = false;
+#pragma unroll
+  for (int j = 0; j < kTris; ++j) {
+    float t;
+    const bool hit = surf::live_hit<kRecord, false>(row + j * 4, ox, oy, oz, dx, dy, dz,
+                                                    CUDART_INF_F, t, wide);
+    t8[j] = hit ? t : CUDART_INF_F;
+  }
+  float t4[kTris / 2];
+  int j4[kTris / 2];
+#pragma unroll
+  for (int j = 0; j < kTris / 2; ++j) {
+    const bool r = t8[2 * j + 1] < t8[2 * j];
+    t4[j] = r ? t8[2 * j + 1] : t8[2 * j];
+    j4[j] = 2 * j + r;
+  }
+  const bool r01 = t4[1] < t4[0], r23 = t4[3] < t4[2];
+  const float ta = r01 ? t4[1] : t4[0], tb = r23 ? t4[3] : t4[2];
+  const int ja = r01 ? j4[1] : j4[0], jb = r23 ? j4[3] : j4[2];
+  const float tw = tb < ta ? tb : ta;
+  const int jw = tb < ta ? jb : ja;
+  if (tw < best_t) {
+    best_t = tw;
+    best_pos = pos0 + jw;
+  }
+  return wide;
+}
+
+// A staged row's sequential tests: strictly-closer updates record by
+// record.  Returns whether some record's reciprocal left the in-range path.
+template <int kRecord, bool kAny>
+__device__ __forceinline__ bool seq_row(const float4* row, int pos0, float ox, float oy,
+                                        float oz, float dx, float dy, float dz, float& best_t,
+                                        int& best_pos) {
+  bool wide = false;
+#pragma unroll
+  for (int j = 0; j < kTris; ++j) {
+    float t;
+    if (surf::live_hit<kRecord, false>(row + j * 4, ox, oy, oz, dx, dy, dz, best_t, t, wide)) {
+      best_t = t;
+      if (!kAny) best_pos = pos0 + j;
+    }
+  }
+  return wide;
+}
+
+// t_in, r_in, u_in and v_in are read only with kCarry: the kernel takes them
+// to share leaf_rows_bf16_live_kernel's signature and launcher.
+template <int kRecord, bool kIlp, bool kCarry, bool kAny>
 __global__ void __launch_bounds__(kThreads)
 leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
                       const int* __restrict__ lists, int cap,
@@ -319,7 +382,10 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
                       float* __restrict__ v_out,
                       unsigned long long* __restrict__ keys,
                       unsigned* __restrict__ arrivals) {
+  static_assert(!(kAny && (kRecord == kBW || kIlp || kCarry)),
+                "the any-hit trim is the sequential Möller–Trumbore test's, without carry-in");
   using Key = std::conditional_t<kAny, unsigned, unsigned long long>;
+  constexpr int kSlotLane = kRecord == kBW ? 12 : 9;
   __shared__ float4 staged[kChunk * kLane / 4];
   __shared__ int live_lane[kThreads];
   __shared__ int warp_live[kThreads / 32];
@@ -330,10 +396,11 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
 
   const size_t stride = static_cast<size_t>(n_rays);  // rays is [7, n_rays]
   const size_t first = b.first;
+  const float* start_t = kCarry ? t_in : rays + 6 * stride;
   const int n_live = surf::compact_live(
-      rays + 6 * stride + first, b.slices, b.slice, b.slice == 0 && blockIdx.y == 0,
-      live_lane, warp_live, [&](int lane, float tm) {
-        write_start<false>(first + lane, tm, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
+      start_t + first, b.slices, b.slice, b.slice == 0 && blockIdx.y == 0, live_lane,
+      warp_live, [&](int lane, float t0) {
+        write_start<kCarry>(first + lane, t0, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
       });
   const int lo_rank = b.slice * kThreads;
   if (n_live <= lo_rank) return;
@@ -349,8 +416,8 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
   const float dx = rays[3 * stride + ray];
   const float dy = rays[4 * stride + ray];
   const float dz = rays[5 * stride + ray];
-  const float tm = rays[6 * stride + ray];
-  float best_t = tm;
+  const float t0 = start_t[ray];
+  float best_t = t0;
   int best_pos = -1;
 
   const float4* table4 = reinterpret_cast<const float4*>(table);
@@ -369,26 +436,17 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
     if (!warp_has) continue;  // a warp without rays only keeps the barriers
     for (int k = 0; k < m; ++k) {
       const float4* row = staged + k * (kLane / 4);
+      const int pos0 = (base + k) * kTris;
       const float row_t = best_t;
       const int row_pos = best_pos;
-      bool wide = false;
-#pragma unroll
-      for (int j = 0; j < kTris; ++j) {
-        const float4 a = row[j * 4], b = row[j * 4 + 1], c = row[j * 4 + 2];
-        float t, u, v, det;
-        if (surf::mt_hit_a<surf::Recip::kInRange>(a.x, a.y, a.z, a.w, b.x, b.y, b.z,
-                                                  b.w, c.x, ox, oy, oz, dx, dy, dz,
-                                                  best_t, t, u, v, det)) {
-          best_t = t;
-          if (!kAny) best_pos = (base + k) * kTris + j;
-        }
-        wide |= fabsf(det) >= surf::kInRangeMax;
-      }
-      if (wide) {  // a determinant out of the in-range reciprocal's range
-                   // (never in a real scene): the row again with 1 / a
+      const bool wide =
+          kIlp ? ilp_row<kRecord>(row, pos0, ox, oy, oz, dx, dy, dz, best_t, best_pos)
+               : seq_row<kRecord, kAny>(row, pos0, ox, oy, oz, dx, dy, dz, best_t, best_pos);
+      if (wide) {  // a reciprocal out of the in-range path's range (never in
+                   // a real scene): the row again with the IEEE division
         best_t = row_t;
         best_pos = row_pos;
-        surf::row_exact(row, (base + k) * kTris, ox, oy, oz, dx, dy, dz, best_t, best_pos);
+        surf::row_exact<kRecord, kIlp>(row, pos0, ox, oy, oz, dx, dy, dz, best_t, best_pos);
       }
     }
   }
@@ -396,7 +454,7 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
   // The merge: key = ~(t bits << 32 | position) (closest) or ~(t bits)
   // (trim); 0 = no hit.
   Key key = 0;
-  if (has_ray && best_t < tm) {
+  if (has_ray && best_t < t0) {
     const unsigned tb = __float_as_uint(best_t);
     if constexpr (kAny) {
       key = ~tb;
@@ -409,7 +467,7 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
     return;
   if (!has_ray) return;
   if (key == 0) {
-    write_start<false>(ray, tm, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
+    write_start<kCarry>(ray, t0, r_in, u_in, v_in, t_out, r_out, u_out, v_out);
     return;
   }
   if constexpr (kAny) {
@@ -422,13 +480,11 @@ leaf_rows_live_kernel(const float* __restrict__ table, int table_rows,
     const int pos = static_cast<int>(k & 0xffffffffu);
     const int p = pos / kTris;
     const int row = b.sweep ? p : list[p];
-    const float4* rec = table4 + static_cast<size_t>(row) * (kLane / 4) + (pos % kTris) * 4;
-    const float4 x = rec[0], y = rec[1], c = rec[2];
+    const float* rec = table + static_cast<size_t>(row) * kLane + (pos % kTris) * kRec;
     float t, u, v;
-    surf::mt_hit(x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w, c.x, ox, oy, oz, dx, dy, dz,
-                 CUDART_INF_F, t, u, v);
+    record_hit<kRecord, false>(rec, ox, oy, oz, dx, dy, dz, CUDART_INF_F, t, u, v);
     t_out[ray] = __uint_as_float(static_cast<unsigned>(k >> 32));
-    r_out[ray] = __float_as_int(c.y);
+    r_out[ray] = __float_as_int(rec[kSlotLane]);
     u_out[ray] = u;
     v_out[ray] = v;
   }
@@ -714,48 +770,60 @@ extern "C" int leaf_rows_threads_per_block() { return kThreads; }
                                             v, stream);                        \
   }
 
-// Möller–Trumbore, f32, sequential: the first design's closest hit and
-// any-hit trim (reached only to time it beside leaf_rows_closest and
-// leaf_rows_any), and with carry-in (bits2).
+// The first design (reached only to time it beside the live kernels'
+// entry points of the same function): Möller–Trumbore, f32, sequential,
+// closest hit and any-hit trim (_pr1) and with carry-in; in bf16 (h),
+// without and with carry-in; with the ILP merge (i); Baldwin–Weber (w),
+// sequential and with the ILP merge (wi), each without and with carry-in.
 SURF_LEAF_ROWS_ENTRY(leaf_rows_closest_pr1, kMT, false, false, false, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_any_pr1, kMT, false, false, false, true)
-SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_carry_closest, kMT, false, false, true, false)
-// Möller–Trumbore in bf16 (h), without and with carry-in: the first
-// design (reached only to time it beside leaf_rows_mt_bf16_closest and
-// leaf_rows_mt_bf16_carry_closest).
+SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_carry_closest_pr4, kMT, false, false, true, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_bf16_closest_pr4, kMT, false, true, false, false)
 SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_bf16_carry_closest_pr4, kMT, false, true, true, false)
-// Möller–Trumbore with the ILP merge (i).
-SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_ilp_closest, kMT, true, false, false, false)
-SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_ilp_carry_closest, kMT, true, false, true, false)
-// Baldwin–Weber (w), sequential and with the ILP merge (wi).
-SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_closest, kBW, false, false, false, false)
-SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_carry_closest, kBW, false, false, true, false)
-SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_ilp_closest, kBW, true, false, false, false)
-SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_ilp_carry_closest, kBW, true, false, true, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_ilp_closest_pr4, kMT, true, false, false, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_mt_ilp_carry_closest_pr4, kMT, true, false, true, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_closest_pr4, kBW, false, false, false, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_carry_closest_pr4, kBW, false, false, true, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_ilp_closest_pr4, kBW, true, false, false, false)
+SURF_LEAF_ROWS_ENTRY(leaf_rows_bw_ilp_carry_closest_pr4, kBW, true, false, true, false)
 
 // The live kernels.  The arguments of the entry points above, and:
 // split_rows (K, > 0), the rows of a split, after block_rays; keys, [n_rays]
 // 64-bit words, and arrivals, [n_rays / 256] 32-bit words, the merge's
-// scratch, all zero before the launch and left all zero after it (one
-// stream at a time).
-#define SURF_LEAF_ROWS_LIVE_ENTRY(name, kernel)                                      \
+// scratch, all zero before the launch and left all zero after it (a scratch
+// serves one stream: accel/leaf_rows.py merge_scratch).
+#define SURF_LEAF_ROWS_LIVE_ENTRY(name, ...)                                         \
   extern "C" int name(const float* table, int table_rows, const int* lists,         \
                       int cap, const int* n_rows, const float* rays, int n_rays,    \
                       int block_rays, int split_rows, const float* t_in,            \
                       const int* r_in, const float* u_in, const float* v_in,        \
                       float* t, int* r, float* u, float* v, unsigned long long* keys, \
                       unsigned* arrivals, cudaStream_t stream) {                    \
-    return launch_live(kernel, table, table_rows, lists, cap, n_rows, rays, n_rays, \
+    return launch_live(__VA_ARGS__, table, table_rows, lists, cap, n_rows, rays,    \
+                       n_rays, \
                        block_rays, split_rows, t_in, r_in, u_in, v_in, t, r, u, v,  \
                        keys, arrivals, stream);                                     \
   }
 
-// Möller–Trumbore, f32, sequential, through leaf_rows_live_kernel: closest
-// hit and the any-hit trim (bitsru8, bits, bits8; bitsp's overflow
-// fallback).
-SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_closest, leaf_rows_live_kernel<false>)
-SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_any, leaf_rows_live_kernel<true>)
+// The f32 record tests, through leaf_rows_live_kernel<kRecord, kIlp,
+// kCarry, kAny>: Möller–Trumbore, sequential, closest hit and the any-hit
+// trim (bitsru8, bits, bits8; bitsp's overflow fallback), and with
+// carry-in (bits2's round B); with the ILP merge (bitsi, bits2i);
+// Baldwin–Weber, sequential (bitsw, bits2w) and with the ILP merge
+// (bitswi, bits2wi).
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_closest, leaf_rows_live_kernel<kMT, false, false, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_any, leaf_rows_live_kernel<kMT, false, false, true>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_mt_carry_closest,
+                          leaf_rows_live_kernel<kMT, false, true, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_mt_ilp_closest, leaf_rows_live_kernel<kMT, true, false, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_mt_ilp_carry_closest,
+                          leaf_rows_live_kernel<kMT, true, true, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_bw_closest, leaf_rows_live_kernel<kBW, false, false, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_bw_carry_closest,
+                          leaf_rows_live_kernel<kBW, false, true, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_bw_ilp_closest, leaf_rows_live_kernel<kBW, true, false, false>)
+SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_bw_ilp_carry_closest,
+                          leaf_rows_live_kernel<kBW, true, true, false>)
 // Möller–Trumbore in bf16, sequential, through leaf_rows_bf16_live_kernel:
 // without and with carry-in (bitsh; bits2h's round B).
 SURF_LEAF_ROWS_LIVE_ENTRY(leaf_rows_mt_bf16_closest, leaf_rows_bf16_live_kernel<false>)
@@ -770,12 +838,26 @@ extern "C" int leaf_rows_bf16x2_probe(int op, const unsigned* a, const unsigned*
 }
 
 // The kernel each of the designs' entry points launches (entry.cuh).
-SURF_KERNEL_OF(leaf_rows_closest, leaf_rows_live_kernel<false>)
-SURF_KERNEL_OF(leaf_rows_any, leaf_rows_live_kernel<true>)
-SURF_KERNEL_OF(leaf_rows_closest_pr1, leaf_rows_kernel<kMT, false, false, false, false>)
-SURF_KERNEL_OF(leaf_rows_any_pr1, leaf_rows_kernel<kMT, false, false, false, true>)
+SURF_KERNEL_OF(leaf_rows_closest, leaf_rows_live_kernel<kMT, false, false, false>)
+SURF_KERNEL_OF(leaf_rows_any, leaf_rows_live_kernel<kMT, false, false, true>)
+SURF_KERNEL_OF(leaf_rows_mt_carry_closest, leaf_rows_live_kernel<kMT, false, true, false>)
+SURF_KERNEL_OF(leaf_rows_mt_ilp_closest, leaf_rows_live_kernel<kMT, true, false, false>)
+SURF_KERNEL_OF(leaf_rows_mt_ilp_carry_closest, leaf_rows_live_kernel<kMT, true, true, false>)
+SURF_KERNEL_OF(leaf_rows_bw_closest, leaf_rows_live_kernel<kBW, false, false, false>)
+SURF_KERNEL_OF(leaf_rows_bw_carry_closest, leaf_rows_live_kernel<kBW, false, true, false>)
+SURF_KERNEL_OF(leaf_rows_bw_ilp_closest, leaf_rows_live_kernel<kBW, true, false, false>)
+SURF_KERNEL_OF(leaf_rows_bw_ilp_carry_closest, leaf_rows_live_kernel<kBW, true, true, false>)
 SURF_KERNEL_OF(leaf_rows_mt_bf16_closest, leaf_rows_bf16_live_kernel<false>)
 SURF_KERNEL_OF(leaf_rows_mt_bf16_carry_closest, leaf_rows_bf16_live_kernel<true>)
+SURF_KERNEL_OF(leaf_rows_closest_pr1, leaf_rows_kernel<kMT, false, false, false, false>)
+SURF_KERNEL_OF(leaf_rows_any_pr1, leaf_rows_kernel<kMT, false, false, false, true>)
+SURF_KERNEL_OF(leaf_rows_mt_carry_closest_pr4, leaf_rows_kernel<kMT, false, false, true, false>)
 SURF_KERNEL_OF(leaf_rows_mt_bf16_closest_pr4, leaf_rows_kernel<kMT, false, true, false, false>)
 SURF_KERNEL_OF(leaf_rows_mt_bf16_carry_closest_pr4,
                leaf_rows_kernel<kMT, false, true, true, false>)
+SURF_KERNEL_OF(leaf_rows_mt_ilp_closest_pr4, leaf_rows_kernel<kMT, true, false, false, false>)
+SURF_KERNEL_OF(leaf_rows_mt_ilp_carry_closest_pr4, leaf_rows_kernel<kMT, true, false, true, false>)
+SURF_KERNEL_OF(leaf_rows_bw_closest_pr4, leaf_rows_kernel<kBW, false, false, false, false>)
+SURF_KERNEL_OF(leaf_rows_bw_carry_closest_pr4, leaf_rows_kernel<kBW, false, false, true, false>)
+SURF_KERNEL_OF(leaf_rows_bw_ilp_closest_pr4, leaf_rows_kernel<kBW, true, false, false, false>)
+SURF_KERNEL_OF(leaf_rows_bw_ilp_carry_closest_pr4, leaf_rows_kernel<kBW, true, false, true, false>)

@@ -10,13 +10,16 @@
 //   by atomicMax, and the last work item of the list to arrive (a counter
 //   and __threadfence, the threadfence-reduction pattern) takes the merged
 //   key and leaves the slot and the counter zero;
+// - `live_hit`: one staged record's test, Möller–Trumbore or Baldwin–Weber,
+//   by the in-range reciprocal (mt.cuh rcp_in_range) or the IEEE division;
 // - `row_exact`: one row's 8 record tests with the IEEE division, the rare
-//   path of a row in which some |det| is out of the in-range reciprocal's
-//   range (mt.cuh rcp_in_range).
+//   path of a row in which some |det| (|den|) is out of the in-range
+//   reciprocal's range, sequential or by the ILP merge.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "mt.cuh"
 
@@ -26,22 +29,62 @@ constexpr int kLiveThreads = 256;  // live rays a block
 constexpr int kLiveTris = 8;       // records a row
 constexpr int kLiveUnroll = 8;     // start t loads in flight a thread (compaction)
 
-// One row's 8 record tests with the IEEE division, sequential
-// strictly-closer updates of (best_t, best_pos) from position pos0: the
-// rare path of the live kernels, inlined as a loop of its own (not
-// unrolled; as a __noinline__ call it cost the hot loop registers and time).
+enum Record { kMT = 0, kBW = 1 };  // Möller–Trumbore, Baldwin–Weber records
+
+// One record test of a staged record (lanes 0-11: three float4) against
+// best_t, 1 / a (1 / den) by the in-range path, or by the IEEE division
+// with kExact; `wide` is set when the in-range path may differ from it.
+template <int kRecord, bool kExact>
+__device__ __forceinline__ bool live_hit(const float4* rec, float ox, float oy, float oz,
+                                         float dx, float dy, float dz, float best_t, float& t,
+                                         bool& wide) {
+  constexpr Recip kRecip = kExact ? Recip::kDivide : Recip::kInRange;
+  const float4 a = rec[0], b = rec[1], c = rec[2];
+  float u, v, det;
+  bool hit;
+  if constexpr (kRecord == kBW) {
+    hit = bw_hit_a<kRecip>(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, ox, oy,
+                           oz, dx, dy, dz, best_t, t, u, v, det);
+  } else {
+    hit = mt_hit_a<kRecip>(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz, dx, dy, dz,
+                           best_t, t, u, v, det);
+  }
+  wide |= fabsf(det) >= kInRangeMax;
+  return hit;
+}
+
+// The rare path of a row in which some reciprocal left the in-range path:
+// the row's 8 record tests again from its start with the IEEE division,
+// inlined as a loop of its own (not unrolled; as a __noinline__ call it
+// cost the hot loop registers and time).  Sequential: strictly-closer
+// updates of (best_t, best_pos) from position pos0.  ILP: the first least
+// t of the row's tests against +inf (a scan with strict <, the min-tree's
+// pick: the tree keeps the left candidate at every tie, so its result is
+// the leftmost least t), then one strict < against best_t.
+template <int kRecord, bool kIlp>
 __device__ __forceinline__ void row_exact(const float4* row, int pos0, float ox, float oy,
                                           float oz, float dx, float dy, float dz,
                                           float& best_t, int& best_pos) {
+  float tw = CUDART_INF_F;
+  int jw = 0;
 #pragma unroll 1
   for (int j = 0; j < kLiveTris; ++j) {
-    const float4 a = row[j * 4], b = row[j * 4 + 1], c = row[j * 4 + 2];
-    float t, u, v;
-    if (mt_hit(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, ox, oy, oz, dx, dy, dz, best_t,
-               t, u, v)) {
-      best_t = t;
-      best_pos = pos0 + j;
+    float t;
+    bool wide = false;
+    if (live_hit<kRecord, true>(row + j * 4, ox, oy, oz, dx, dy, dz,
+                                kIlp ? CUDART_INF_F : best_t, t, wide)) {
+      if (!kIlp) {
+        best_t = t;
+        best_pos = pos0 + j;
+      } else if (t < tw) {
+        tw = t;
+        jw = j;
+      }
     }
+  }
+  if (kIlp && tw < best_t) {
+    best_t = tw;
+    best_pos = pos0 + jw;
   }
 }
 

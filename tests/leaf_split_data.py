@@ -1,5 +1,6 @@
-"""Adversarial inputs of the leaf-row kernels' split merge, the bf16 tie
-set and the bf16 rounding pairs, shared by the CPU emulation tests
+"""Adversarial inputs of the leaf-row kernels' split merge (and their
+Baldwin–Weber form), the bf16 tie set and the bf16 rounding pairs, shared
+by the CPU emulation tests
 (test_torch_leaf_split.py, test_torch_bf16_split.py) and the card's tests
 (test_torch_cuda.py).  Made with numpy from a seed; imports no JAX."""
 
@@ -86,6 +87,35 @@ def adversarial(seed=0, live_share=1.0, block_rays=512):
     lists[3, :3] = [6, 5, 2]                    # ignored: a sweep
     n_rows = torch.tensor([16, 6, 0, -1], dtype=torch.int32)
     return (table, torch.from_numpy(lists), n_rows, torch.from_numpy(rays).contiguous(), R)
+
+
+def bw_table(table: torch.Tensor) -> torch.Tensor:
+    """The Baldwin–Weber records (``LeafTable.tablew``'s layout: n, d0, a1,
+    a1w, a2, a2w, slot id in lane 12) of a table of Möller–Trumbore records
+    (v0, e1, e2, slot id in lane 9), derived in float64 as
+    ``accel/wide.py`` ``_fill_bw_rows`` derives them; an all-zero (inert)
+    record stays all zero.  The triangles of edges 1.2e19 and 1e20 of
+    ``adversarial`` give |n| near 1.4e38 and inf: |den| past 2^126."""
+    rec = table.numpy().reshape(-1, TRIS, REC)
+    out = np.zeros_like(rec)
+    for r, j in zip(*np.nonzero(rec.any(axis=2))):
+        v0 = rec[r, j, 0:3].astype(np.float64)
+        e1 = rec[r, j, 3:6].astype(np.float64)
+        e2 = rec[r, j, 6:9].astype(np.float64)
+        n = np.cross(e1, e2)
+        k = int(np.argmax(np.abs(n)))
+        i_, j_ = (k + 1) % 3, (k + 2) % 3
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            inv = 1.0 / n[k]
+            a1 = np.zeros(3)
+            a2 = np.zeros(3)
+            a1[i_], a1[j_] = e2[j_] * inv, -e2[i_] * inv
+            a1w = (e2[i_] * v0[j_] - e2[j_] * v0[i_]) * inv
+            a2[i_], a2[j_] = -e1[j_] * inv, e1[i_] * inv
+            a2w = (e1[j_] * v0[i_] - e1[i_] * v0[j_]) * inv
+            out[r, j, 0:12] = np.concatenate([n, [n @ v0], a1, [a1w], a2, [a2w]])
+        out[r, j, 12] = rec[r, j, 9]
+    return torch.from_numpy(out.reshape(table.shape))
 
 
 # --- bf16: equal t at different positions, and the rounding pairs ----------

@@ -1,8 +1,9 @@
-"""The hand-written kernels (leaf rows with every entry point and the first
-designs of the f32 and bf16 pairs, the packed bf16x2 ops, instanced leaf
-rows and their first design, the stream walks with the TPU schedules and
-the first designs of skip, stack, ilvN and specN / specbN, the binary walk,
-the SASS of the stack walk's and the instanced rows' new kernels, the
+"""The hand-written kernels (leaf rows with every entry point and their
+first designs, the merge scratch of two streams at once, the packed bf16x2
+ops, instanced leaf rows and their first design, the stream walks with the
+TPU schedules and the first designs of skip, stack, ilvN and specN /
+specbN, the binary walk and its first design, the SASS of the redesigned
+kernels, the
 dependent-cursor, leaf-row,
 walk-visit, visit-shape, matrix-unit and op-cost microbenchmarks) against
 their plain PyTorch versions, on the card.
@@ -41,10 +42,11 @@ from surf_tpu_torch.scene.compile import compile_scene
 from surf_tpu_torch.wavefront.integrator import (BENCH_KNOBS, RenderConfig, initial_seeds,
                                                  render_frame_seeded)
 
+import test_torch_binary_split as binary_split
 import test_torch_inst_split as inst_split
 import test_torch_spec_split as spec_split
 import test_torch_stack_split as stack_split
-from leaf_split_data import adversarial, bf16_pairs, bf16_ties, carry_starts
+from leaf_split_data import adversarial, bf16_pairs, bf16_ties, bw_table, carry_starts
 
 pytestmark = pytest.mark.cuda
 
@@ -155,7 +157,7 @@ def test_live_kernel_matches_plain_on_adversarial_data(cuda, trim, live_share, s
     torch.cuda.synchronize()
     _bits_equal(got, want)
     _bits_equal(old, want)
-    for x in leaf_rows_mod._SCRATCH[torch.device("cuda", torch.cuda.current_device())]:
+    for x in leaf_rows_mod._SCRATCH[leaf_rows_mod.scratch_key(torch.device("cuda"))]:
         assert not bool(x.any())
 
 
@@ -220,27 +222,32 @@ def test_variant_matches_plain_bit_exact(indoor, cuda, name, mode):
     assert (got[1][2048:4096] == -1).all() and (got[1] >= 0).any()
 
 
-BF16 = ("leaf_rows_mt_bf16_closest", "leaf_rows_mt_bf16_carry_closest")
-
-
-def _bf16_calls(table, lists, n_rows, rays, R, carry):
-    """(args, kw) of a bf16 call, without carry or resuming after round A's
-    first 8 rows (sweeps whole in round A), and the one-call result."""
-    kw = dict(precision="bf16")
+def _carry_call(table, lists, n_rows, rays, R, kw, carry, rows_a=8):
+    """(args, kw, one-call result) of a call of kind ``kw`` (record, merge,
+    precision), without carry or resuming after round A's first ``rows_a``
+    rows of each list (sweeps whole in round A)."""
+    kw = dict(kw)
     if not carry:
         return (table, lists, n_rows, rays, R), kw, None
     whole = leaf_rows(table, lists, n_rows, rays, R, **kw)
-    n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=8)).to(torch.int32)
+    n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=rows_a)).to(torch.int32)
     kw["carry"] = leaf_rows(table, lists, n_a, rays, R, **kw)
-    n_b = torch.where(n_rows < 0, 0, (n_rows - 8).clamp(min=0)).to(torch.int32)
-    return (table, lists[:, 8:].contiguous(), n_b, rays, R), kw, whole
+    n_b = torch.where(n_rows < 0, 0, (n_rows - rows_a).clamp(min=0)).to(torch.int32)
+    return (table, lists[:, rows_a:].contiguous(), n_b, rays, R), kw, whole
 
 
-def _bf16_matches(args, kw, whole):
-    """The bf16 entry point against the plain version and its first design
-    (_pr4), bit for bit; one launch each; the merge's scratch left zero; a
-    carry-in call equal to the one-call result."""
-    name = BF16[int("carry" in kw)]
+def _bf16_calls(table, lists, n_rows, rays, R, carry):
+    """``_carry_call`` of a bf16 call."""
+    return _carry_call(table, lists, n_rows, rays, R, dict(precision="bf16"), carry)
+
+
+def _design_matches(args, kw, whole=None):
+    """The entry point of a call against the plain version and its first
+    design, bit for bit; one launch each; the merge's scratch left zero; a
+    carry-in call equal to the one-call result (``whole``).  Returns the
+    plain result."""
+    name = leaf_rows_mod.entry_point(**{k: v for k, v in kw.items() if k != "carry"},
+                                     carry="carry" in kw)
     reset_launches()
     got = leaf_rows(*args, **kw)
     old = leaf_rows_first_design(*args, **kw)
@@ -252,9 +259,9 @@ def _bf16_matches(args, kw, whole):
     _bits_equal(old, want)
     if whole is not None:
         _bits_equal(got, whole)
-    for x in leaf_rows_mod._SCRATCH[torch.device("cuda", torch.cuda.current_device())]:
+    for x in leaf_rows_mod._SCRATCH[leaf_rows_mod.scratch_key(torch.device("cuda"))]:
         assert not bool(x.any())
-    return got
+    return want
 
 
 @pytest.mark.parametrize("carry", [False, True], ids=["no_carry", "carry"])
@@ -272,7 +279,7 @@ def test_bf16_kernel_matches_plain_and_pr4(indoor, cuda, lists, live_share, bloc
     act = (torch.rand(n, generator=torch.Generator().manual_seed(9)) < live_share).to(cuda)
     tmax = torch.full((n,), 1e30, device=cuda)
     rays, lst, n_rows = bits.prepare(indoor.trace, o, d, tmax, act, block, cap_rows=64)
-    got = _bf16_matches(*_bf16_calls(indoor.trace.ltab, lst, n_rows, rays, block, carry))
+    got = _design_matches(*_bf16_calls(indoor.trace.ltab, lst, n_rows, rays, block, carry))
     assert (got[1] >= 0).any()
 
 
@@ -295,7 +302,7 @@ def test_bf16_kernel_on_adversarial_and_tie_data(cuda, data, live_share, split_r
         kw["carry"] = carry_starts(*kw["carry"], seed=split_rows)
         whole = None
     with mock.patch.object(leaf_rows_mod, "split_rows", lambda n: split_rows):
-        _bf16_matches(args, kw, whole)
+        _design_matches(args, kw, whole)
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
@@ -324,6 +331,104 @@ def test_bf16x2_ops_round_as_the_plain_version(cuda, op):
     assert torch.equal(torch.isnan(got.float()), nan)
     assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
     assert (want[~nan].float().abs() < 2.0 ** -126).any()
+
+
+# The f32 entry points beyond the pair, on leaf_rows_live_kernel since the
+# Baldwin–Weber, ILP and carry-in redesign; their first designs are _pr4.
+F32_VARIANTS = [k for k in leaf_rows_mod.LIVE_ENTRY_POINTS
+                if k not in ("leaf_rows_closest", "leaf_rows_any")]
+
+
+def _variant_call(name, table, lists, n_rows, rays, R, rows_a=8):
+    """``_carry_call`` of entry point ``name``."""
+    record, merge, _, carry, _ = ENTRY_POINTS[name]
+    return _carry_call(table, lists, n_rows, rays, R, dict(record=record, merge=merge), carry,
+                       rows_a)
+
+
+@pytest.mark.parametrize("block", [512, 2048])
+@pytest.mark.parametrize("live_share", [0.0, 0.01, 0.4, 1.0])
+@pytest.mark.parametrize("lists", [1, 4, 128])
+@pytest.mark.parametrize("name", F32_VARIANTS)
+def test_f32_live_kernel_matches_plain_and_pr4(indoor, cuda, name, lists, live_share, block):
+    """leaf_rows_{mt,bw}[_ilp][_carry]_closest on leaf_rows_live_kernel
+    (compaction, row splits, the (t, position) merge, the in-range
+    reciprocal) against the plain version and the first design on the
+    indoor scene's lists: 1-128 lists of 512 or 2048 rays, 0-100% live, a
+    sweep where a list overflows 64 rows, carry-in resumed from round A."""
+    n = lists * block
+    o, d, _ = _rays(max(n, 4096), seed=10, device=cuda)
+    o, d = o[:n], d[:n]
+    act = (torch.rand(n, generator=torch.Generator().manual_seed(11)) < live_share).to(cuda)
+    rays, lst, n_rows = bits.prepare(indoor.trace, o, d, torch.full((n,), 1e30, device=cuda),
+                                     act, block, cap_rows=64)
+    table = indoor.trace.ltabw if ENTRY_POINTS[name][0] == "bw" else indoor.trace.ltab
+    want = _design_matches(*_variant_call(name, table, lst, n_rows, rays, block))
+    if live_share == 1.0:
+        assert (want[1] >= 0).any()
+
+
+@pytest.mark.parametrize("split_rows", [1, 4, 32])
+@pytest.mark.parametrize("live_share", LIVE_SHARES)
+@pytest.mark.parametrize("name", F32_VARIANTS)
+def test_f32_live_kernel_on_adversarial_data(cuda, name, live_share, split_rows):
+    """The same on leaf_split_data's adversarial lists (equal t either side
+    of split boundaries and twice in one row, |det| and |den| past 2^126
+    and inf, inert rows, a 0-row list, a sweep, an all-dead packet, dead,
+    NaN and barely live t_max; Baldwin–Weber records by bw_table), 1-32
+    rows a split, carry-in with start t at the liveness rule's edges."""
+    table, lists, n_rows, rays, R = adversarial(seed=5, live_share=live_share)
+    if ENTRY_POINTS[name][0] == "bw":
+        table = bw_table(table)
+    table, lists, n_rows, rays = (x.to(cuda) for x in (table, lists, n_rows, rays))
+    args, kw, whole = _variant_call(name, table, lists, n_rows, rays, R, rows_a=3)
+    if "carry" in kw:
+        kw["carry"] = carry_starts(*kw["carry"], seed=split_rows)
+        whole = None
+    with mock.patch.object(leaf_rows_mod, "split_rows", lambda n: split_rows):
+        want = _design_matches(args, kw, whole)
+    if "carry" not in kw and live_share == 1.0:
+        assert (want[1] == 2000).any() and not (want[1] == 1001).any()
+
+
+def test_merge_scratch_is_private_to_a_stream(indoor, cuda):
+    """Two live-kernel calls in flight at once on two streams, of different
+    sizes: a small one (the adversarial lists, 2,048 rays) on one stream and
+    a large one (128 indoor lists of 2,048 rays) on the other, one split a
+    row so that every ray's key goes through the scratch; the small call
+    again after the large one has replaced a scratch shared by the device.
+    Each result equal bit for bit to its plain result, and each stream's
+    scratch left zero."""
+    table, lists, n_rows, rays, R = (x.to(cuda) if torch.is_tensor(x) else x
+                                     for x in adversarial(seed=7))
+    small = (table, lists, n_rows, rays, R)
+    n = 128 * 2048
+    o, d, _ = _rays(n, seed=12, device=cuda)
+    act = torch.ones(n, dtype=torch.bool, device=cuda)
+    r_big, l_big, n_big = bits.prepare(indoor.trace, o, d, torch.full((n,), 1e30, device=cuda),
+                                       act, 2048)
+    large = (indoor.trace.ltab, l_big, n_big, r_big, 2048)
+    want_small = leaf_rows_plain(*small)
+    want_large = leaf_rows_plain(*large)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    with mock.patch.object(leaf_rows_mod, "split_rows", lambda n: 1):
+        for _ in range(4):
+            with torch.cuda.stream(s1):
+                got.append(("small", leaf_rows(*small)))
+            with torch.cuda.stream(s2):
+                got.append(("large", leaf_rows(*large)))
+            with torch.cuda.stream(s1):
+                got.append(("small", leaf_rows(*small)))
+    torch.cuda.synchronize()
+    for kind, out in got:
+        _bits_equal(out, want_small if kind == "small" else want_large)
+    for s in (s1, s2):
+        with torch.cuda.stream(s):
+            for x in leaf_rows_mod._SCRATCH[leaf_rows_mod.scratch_key(torch.device("cuda"))]:
+                assert not bool(x.any())
 
 
 @pytest.mark.parametrize("record", ["mt", "bw"])
@@ -441,7 +546,7 @@ def _inst_matches(data, any_hit, split_rows=None, splits=None):
     torch.cuda.synchronize()
     _bits_equal(got, want)
     _bits_equal(old, want)
-    for x in leaf_rows_mod._SCRATCH[torch.device("cuda", torch.cuda.current_device())]:
+    for x in leaf_rows_mod._SCRATCH[leaf_rows_mod.scratch_key(torch.device("cuda"))]:
         assert not bool(x.any())
     return want
 
@@ -649,7 +754,7 @@ def test_stack_kernel_rejects_bad_inputs(indoor, cuda):
 
 # The new kernels' entry points, found by name (csrc/entry.cuh).
 NEW_SASS = ("stream_walk_stack_closest", "stream_walk_stack_any", "inst_rows_closest",
-            "inst_rows_any")
+            "inst_rows_any", "bvh_walk_closest", "bvh_walk_any", *F32_VARIANTS)
 
 
 @pytest.mark.parametrize("entry", NEW_SASS)
@@ -1119,6 +1224,111 @@ def test_bvh_walk_matches_plain_bit_exact(indoor, cuda, any_hit):
     counts = got[4]
     assert counts.shape == (7, 2) and counts[1].tolist() == [0, 0]
     assert (got[1][1024:2048] == -1).all() and (got[1] >= 0).any()
+
+
+def _bvh_matches(tr, rays, a, any_hit):
+    """bvh_walk_{closest,any} and the first design (_pr3) against the plain
+    version, bit for bit with equal counts, one launch each; returns the
+    plain result."""
+    args = (tr.nodes, tr.tris, tr.n_nodes, rays, a, any_hit)
+    want = bvh_walk.bvh_walk_plain(*args)
+    bvh_walk.reset_launches()
+    got = bvh_walk.bvh_walk(*args)
+    old = bvh_walk.bvh_walk_pr3(*args)
+    torch.cuda.synchronize()
+    name = bvh_walk.ENTRY_POINTS[int(any_hit)]
+    assert bvh_walk.LAUNCHES[name] == 1 and bvh_walk.LAUNCHES[name + "_pr3"] == 1
+    assert sum(bvh_walk.LAUNCHES.values()) == 2
+    _bits_equal(got, want)
+    _bits_equal(old, want)
+    return want
+
+
+def _bvh_rays(cuda, packets, live, any_hit, seed=6):
+    """packets x 1024 random rays with ``live`` of them active, three with a
+    zero direction component (1/0 = inf, not nudged); with two packets or
+    more the second is all dead, and the last 300 lanes are pad rays."""
+    n = packets * 1024 - (300 if packets > 1 else 0)
+    o, d, _ = _rays(max(n, 4096), seed=seed, device=cuda)
+    o, d = o[:n], d[:n].clone()
+    d[:3] = torch.tensor([[1.0, 0, 0], [0, -1.0, 0], [0, 0, 1.0]], device=cuda)
+    act = torch.from_numpy(np.random.default_rng(seed).random(n) < live).to(cuda)
+    if packets > 1:
+        act[1024:2048] = False
+    tmax = torch.full((n,), 6.0 if any_hit else 1e30, device=cuda)
+    return stream.pack_rays(o, d, tmax, act, 1024)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("live", [0.0, 0.01, 0.4, 1.0])
+@pytest.mark.parametrize("packets", [1, 2, 4, 128])
+def test_bvh_kernel_matches_plain_and_pr3(indoor, cuda, packets, live, any_hit):
+    """The binary walk (compaction, both successors and a leaf's triangles
+    staged, one vote a step, the in-range reciprocal) and its first design
+    against the plain version on the indoor node list, 1-128 packets,
+    0-100% live."""
+    rays, a = _bvh_rays(cuda, packets, live, any_hit)
+    want = _bvh_matches(indoor.binary, rays, a, any_hit)
+    assert want[4].shape == (packets, 2)
+    if packets > 1:
+        assert want[4][1].tolist() == [0, 0] and (want[1][1024:2048] == -1).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("scene", ["box", "indoor"])
+def test_bvh_kernel_on_the_emulation_data(indoor, cuda, scene, any_hit):
+    """tests/test_torch_binary_split.py's packets on both scenes: all
+    active, 40% active, all dead, and rays from inside the room every one
+    of which hits (any-hit: the packet stops before the list's end), pad
+    rays."""
+    tr = (indoor if scene == "indoor"
+          else compile_scene(builtin.make_diffuse_box_scene(), cuda)).binary
+    rays, a = (x.to(cuda) for x in binary_split._data(scene, any_hit))
+    want = _bvh_matches(tr, rays, a, any_hit)
+    assert (want[1][3 * 1024:][a[3 * 1024:] != 0] >= 0).all()
+
+
+def test_bvh_kernel_on_a_triangle_past_the_in_range_reciprocal(cuda):
+    """A node list of one leaf over a triangle of edges 1.2e19 (|det| about
+    1.4e38, past 2^126: the IEEE redo) and one of edges 1e20 (det = inf),
+    hit from below: the kernels and the plain version agree bit for bit."""
+    from surf_tpu_torch.accel.skiplinks import pack_records_np
+
+    rec = np.zeros((2, 16), np.float32)
+    rec[0, 0:3] = [-1.0, -1.0, 0.3]
+    rec[0, 3:6] = [1.2e19 + 1.0, 0.0, 0.0]
+    rec[0, 6:9] = [0.0, 1.2e19 + 1.0, 0.0]
+    rec[1, 0:3] = [-1.0, -1.0, 0.2]
+    rec[1, 3:6] = [1e20, 0.0, 0.0]
+    rec[1, 6:9] = [0.0, 1e20, 0.0]
+    tris = torch.from_numpy(np.concatenate([rec, np.zeros((6, 16), np.float32)])
+                            .reshape(1, 128)).to(cuda)
+    f = [np.array([v], np.float32) for v in (-1e30, -1e30, -1e30, 1e30, 1e30, 1e30)]
+    i = [np.array([v], np.int32) for v in (0, 2, 1)]
+    nodes = torch.from_numpy(pack_records_np(f, i)).to(cuda)
+    n = 1024
+    rng = np.random.default_rng(4)
+    o = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n), np.full(n, -1.0)], 1)
+    d = np.stack([rng.normal(0, 0.1, n), rng.normal(0, 0.1, n), np.ones(n)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays, a = stream.pack_rays(torch.from_numpy(o.astype(np.float32)).to(cuda),
+                               torch.from_numpy(d.astype(np.float32)).to(cuda),
+                               torch.full((n,), 1e30, device=cuda),
+                               torch.ones(n, dtype=torch.bool, device=cuda), 1024)
+    tr = bvh_walk.BinaryTrace(nodes, tris, 1)
+    for any_hit in (False, True):
+        want = _bvh_matches(tr, rays, a, any_hit)
+        assert (want[1] == 0).sum() > n // 2
+
+
+def test_bvh_kernel_on_a_frames_calls(indoor, cuda):
+    """Every binary-walk call of a 128x128 use_wide=False frame: the kernel
+    and its first design against the plain version, counts included."""
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(128, 128), cuda)
+    calls = _frame_calls(bvh_walk, "bvh_walk", indoor, cam, cuda, use_wide=False)
+    assert len(calls) >= 8 and {bool(args[5]) for args in calls} == {False, True}
+    for nodes, tris, n_nodes, rays, a, any_hit in calls:
+        _bvh_matches(bvh_walk.BinaryTrace(nodes, tris, n_nodes), rays, a, any_hit)
 
 
 @pytest.mark.parametrize("walk", [dict(algo="skip"), dict(algo="stack"), dict(use_wide=False),

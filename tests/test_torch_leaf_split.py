@@ -1,18 +1,26 @@
-"""The decomposition of the leaf-row kernel's closest-hit and any-hit trim
-entry points (``csrc/leaf_rows.cu`` ``leaf_rows_live_kernel``), emulated
+"""The decomposition of the leaf-row kernel's f32 entry points
+(``csrc/leaf_rows.cu`` ``leaf_rows_live_kernel``), emulated
 step by step on the CPU and held ``torch.equal`` to ``leaf_rows_plain``:
 
-- live-ray compaction: a lane is live when t_max > 1e-5 (NaN is not); the
+- live-ray compaction: a lane is live when its start t (t_max, or the
+  carry-in t) > 1e-5 (NaN is not); the
   block of slice 0, split 0 writes every dead lane's start value, and the
   live lanes of a list are handed out 256 to a slice in lane order;
 - row splits: split y tests list positions [y K, y K + K) record by
-  record with strictly-closer updates from t_max, carrying only (t,
+  record with strictly-closer updates from the start t, carrying only (t,
   position); a list of 0 rows still has split 0;
 - the merge: each split's hit goes in as the inverted key ~(t bits << 32 |
   position · 8 + j) (the trim: ~(t bits)) through a max, in any order of
   arrival; the last split decodes the key, recomputes u and v with the
   same record test on the winning record and reads the slot id from its
   lane 9, and resets the key.
+
+The same emulation covers the kernel's other f32 entry points: Baldwin–Weber
+records (the decode recomputes u and v with ``bw_records`` and reads the
+slot id from lane 12), the ILP merge (each row's records tested against
++inf, the left-preferring min-tree, one strict < a row: the same (t,
+position) key) and carry-in (the start t, r, u, v from an earlier call; a
+lane is live when its start t > 1e-5).
 
 One tie case also holds ``leaf_rows_plain`` (through ``traverse_bits``)
 against ``surf_tpu``'s ``traverse_wide(algo="bitsru8")`` in interpret mode,
@@ -30,12 +38,12 @@ from surf_tpu.accel.pallas_wide import WideTrace, traverse_wide
 from surf_tpu.scene import builtin as jbuiltin
 from surf_tpu.scene.compile import HostCompiled
 from surf_tpu_torch.accel import bits
-from surf_tpu_torch.accel.leaf_rows import (EPS, REC, SLOT_LANE, TRIS, leaf_rows,
-                                            leaf_rows_plain, mt_records)
+from surf_tpu_torch.accel.leaf_rows import (EPS, RECORD_TESTS, REC, SLOT_LANE, TRIS, _min_tree,
+                                            leaf_rows, leaf_rows_plain)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.compile import compile_scene
 
-from leaf_split_data import adversarial
+from leaf_split_data import adversarial, bw_table, carry_starts
 
 warnings.filterwarnings("ignore", category=RuntimeWarning)
 torch.set_num_threads(1)
@@ -53,18 +61,27 @@ def _key(t: torch.Tensor, pos: torch.Tensor, trim: bool) -> np.ndarray:
 
 
 def split_emulation(table, lists, n_rows, rays, block_rays, trim=False, split_rows=32,
-                    order_seed=0):
+                    order_seed=0, record="mt", merge="seq", carry=None):
     """leaf_rows_live_kernel's decomposition on the CPU: (t, r, u, v)."""
     g = lists.shape[0]
     E = table.shape[0]
     n = rays.shape[1]
+    test = RECORD_TESTS[record, "f32"]
+    start = carry[0] if carry is not None else rays[6]
     out_t = torch.empty(n, dtype=torch.float32)
     out_r = torch.empty(n, dtype=torch.int32)
     out_u = torch.empty(n, dtype=torch.float32)
     out_v = torch.empty(n, dtype=torch.float32)
     keys = np.zeros(n, np.uint64)  # the scratch: 0 = no hit
     recs = table.reshape(E, TRIS, REC)
-    sids = table.view(torch.int32).reshape(E, TRIS, REC)[..., SLOT_LANE["mt"]]
+    sids = table.view(torch.int32).reshape(E, TRIS, REC)[..., SLOT_LANE[record]]
+
+    def write_start(at):
+        out_t[at] = start[at]
+        out_r[at] = carry[1][at] if carry is not None else -1
+        out_u[at] = carry[2][at] if carry is not None else 0.0
+        out_v[at] = carry[3][at] if carry is not None else 0.0
+
     order = np.random.default_rng(order_seed)
     for p in range(g):
         first = p * block_rays
@@ -73,56 +90,59 @@ def split_emulation(table, lists, n_rows, rays, block_rays, trim=False, split_ro
         if sweep:
             count = E
         parts = max(1, -(-count // split_rows))
-        tm_all = rays[6, first:first + block_rays]
-        live = tm_all > EPS
+        live = start[first:first + block_rays] > EPS
         # slice 0, split 0 writes the dead lanes' start values
-        dead = first + torch.nonzero(~live)[:, 0]
-        out_t[dead] = rays[6, dead]
-        out_r[dead] = -1
-        out_u[dead] = 0.0
-        out_v[dead] = 0.0
+        write_start(first + torch.nonzero(~live)[:, 0])
         lanes = first + torch.nonzero(live)[:, 0]  # rank order = lane order
         for s in range(-(-lanes.numel() // THREADS)):
             ray = lanes[s * THREADS:(s + 1) * THREADS]
             o = tuple(rays[c, ray] for c in range(3))
             d = tuple(rays[c, ray] for c in range(3, 6))
-            tm = rays[6, ray]
+            o1, d1 = tuple(x[:, None] for x in o), tuple(x[:, None] for x in d)
+            t0 = start[ray]
             for y in order.permutation(parts):  # splits arrive in any order
-                best_t = tm.clone()
+                best_t = t0.clone()
                 best_pos = torch.full_like(ray, -1)
                 for pos in range(y * split_rows, min(count, (y + 1) * split_rows)):
                     row = pos if sweep else int(lists[p, pos])
-                    for j in range(TRIS):
-                        t, _, _, ok = mt_records(recs[row, j], o, d)
-                        hit = ok & (t < best_t)
-                        best_t = torch.where(hit, t, best_t)
-                        best_pos = torch.where(hit, pos * TRIS + j, best_pos)
-                found = (best_t < tm).numpy()
+                    t8, _, _, ok8 = test(recs[row], o1, d1)     # [rays, 8]
+                    if merge == "seq":  # strictly-closer updates, record by record
+                        for j in range(TRIS):
+                            hit = ok8[:, j] & (t8[:, j] < best_t)
+                            best_t = torch.where(hit, t8[:, j], best_t)
+                            best_pos = torch.where(hit, pos * TRIS + j, best_pos)
+                    else:  # the min-tree over tests against +inf, one strict <
+                        cand = torch.where(ok8 & (t8 < torch.inf), t8, torch.inf)
+                        tw, jw = _min_tree(cand)
+                        hit = tw < best_t
+                        best_t = torch.where(hit, tw, best_t)
+                        best_pos = torch.where(hit, pos * TRIS + jw, best_pos)
+                found = (best_t < t0).numpy()
                 idx = ray.numpy()[found]
                 keys[idx] = np.maximum(keys[idx], _key(best_t[found], best_pos[found], trim))
             # the last split to arrive: decode, recompute, reset
             k = keys[ray.numpy()]
             keys[ray.numpy()] = 0
             hit = torch.from_numpy(k != 0)
+            write_start(ray[~hit])
             kk = ~k
             t_hit = torch.from_numpy((kk >> np.uint64(32) if not trim else kk)
                                      .astype(np.uint32).view(np.int32)).view(torch.float32)
-            out_t[ray] = torch.where(hit, t_hit, tm)
+            out_t[ray[hit]] = t_hit[hit]
             if trim:
-                out_r[ray] = torch.where(hit, 0, -1).to(torch.int32)
-                out_u[ray] = 0.0
-                out_v[ray] = 0.0
+                out_r[ray[hit]] = 0
+                out_u[ray[hit]] = 0.0
+                out_v[ray[hit]] = 0.0
                 continue
             pos = torch.from_numpy((kk & np.uint64(0xFFFFFFFF)).astype(np.int64))
             pos = torch.where(hit, pos, 0)
             at = pos // TRIS
             row = at if sweep else lists[p].long()[at]
             j = pos % TRIS
-            rec = recs[row, j]                           # [rays, 16]
-            _, u, v, _ = mt_records(rec, o, d)
-            out_r[ray] = torch.where(hit, sids[row, j], -1)
-            out_u[ray] = torch.where(hit, u, 0.0)
-            out_v[ray] = torch.where(hit, v, 0.0)
+            _, u, v, _ = test(recs[row, j], o, d)          # the winning record, per ray
+            out_r[ray[hit]] = sids[row, j][hit]
+            out_u[ray[hit]] = u[hit]
+            out_v[ray[hit]] = v[hit]
     assert not keys.any(), "the scratch must be left zero"
     return out_t, out_r, out_u, out_v
 
@@ -211,6 +231,68 @@ def test_adversarial_data_exercises_every_case():
     for lane in (7, 9, 10, 11):
         assert r[lane] == -1 and u[lane] == 0 and v[lane] == 0
     assert torch.isnan(t[11]) and t[7] == 1e-5
+
+
+# --- Baldwin–Weber, the ILP merge and carry-in -----------------------------
+
+# (record, merge, carry) of the live kernel's other f32 entry points.
+VARIANTS = [("mt", "seq", True), ("mt", "ilp", False), ("mt", "ilp", True),
+            ("bw", "seq", False), ("bw", "seq", True), ("bw", "ilp", False),
+            ("bw", "ilp", True)]
+CARRY_ROWS = 3  # round A's rows before a carry-in call
+
+
+def _variant_call(table, lists, n_rows, rays, R, record, merge, carry, seed=0):
+    """(args, kw) of a variant's call: without carry, or resuming after round
+    A's first CARRY_ROWS rows of each list (sweeps whole in round A) with
+    start t at the liveness rule's edges (``carry_starts``)."""
+    kw = dict(record=record, merge=merge)
+    if record == "bw":
+        table = bw_table(table)
+    if not carry:
+        return (table, lists, n_rows, rays, R), kw
+    n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=CARRY_ROWS)).to(torch.int32)
+    kw["carry"] = carry_starts(*leaf_rows_plain(table, lists, n_a, rays, R, **kw), seed=seed)
+    n_b = torch.where(n_rows < 0, 0, (n_rows - CARRY_ROWS).clamp(min=0)).to(torch.int32)
+    return (table, lists[:, CARRY_ROWS:].contiguous(), n_b, rays, R), kw
+
+
+@pytest.mark.parametrize("split_rows", [1, K_SMALL])
+@pytest.mark.parametrize("record, merge, carry", VARIANTS)
+def test_variant_emulation_matches_plain_on_adversarial_data(record, merge, carry, split_rows):
+    """The live kernel's seven other entry points: Baldwin–Weber records
+    (bw_table: |den| past 2^126 and inf too), the ILP merge (row 2 holds
+    the least t twice, at j 1 and j 6: the first must win) and carry-in
+    resumed from round A."""
+    args, kw = _variant_call(*adversarial(seed=2, live_share=0.4), record, merge, carry,
+                             seed=split_rows)
+    want = leaf_rows_plain(*args, **kw)
+    got = split_emulation(*args, split_rows=split_rows, order_seed=split_rows, **kw)
+    _assert_equal(got, want)
+    R = args[4]
+    r3 = want[1][3 * R:]
+    if not carry:  # the sweep reaches X first through row 2, j 1, never j 6
+        assert (r3 == 1000).sum() > 20 and not (r3 == 1001).any()
+        assert (want[1] == 2000).any()  # |det| or |den| past 2^126 hits
+
+
+@pytest.mark.parametrize("record, merge, carry", [("bw", "ilp", False), ("mt", "ilp", True)])
+def test_variant_emulation_matches_plain_on_indoor_packets(indoor, record, merge, carry):
+    """The same on the indoor scene's lists, with a sweep."""
+    o, d, act = _indoor_rays(3 * 1024, seed=6)
+    rays, lists, n_rows = bits.prepare(indoor.trace, o, d, torch.full((o.shape[0],), 1e30),
+                                       act, 1024, cap_rows=8)
+    assert (n_rows < 0).any()
+    table = indoor.trace.ltabw if record == "bw" else indoor.trace.ltab
+    kw = dict(record=record, merge=merge)
+    if carry:
+        n_a = torch.where(n_rows < 0, -1, n_rows.clamp(max=2)).to(torch.int32)
+        kw["carry"] = leaf_rows_plain(table, lists, n_a, rays, 1024, **kw)
+        lists = lists[:, 2:].contiguous()
+        n_rows = torch.where(n_rows < 0, 0, (n_rows - 2).clamp(min=0)).to(torch.int32)
+    want = leaf_rows_plain(table, lists, n_rows, rays, 1024, **kw)
+    _assert_equal(split_emulation(table, lists, n_rows, rays, 1024, **kw), want)
+    assert (want[1] >= 0).any()
 
 
 def test_emulation_matches_plain_on_a_one_list_call():
