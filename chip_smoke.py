@@ -239,6 +239,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      reads n_e lanes a visit and keeps n_e + n_v FMUL/FADD pairs a value
      and no FFMA, the interleaved walks and the W-row visits one barrier
      a step whatever n or W.
+  12. defer: cross-frame deferral through the facade
+     (app.renderer.WavefrontRenderer(defer=True, wave_limit=8)) on the
+     indoor scene at 512x512, bitsru8, 2048-ray packets, compaction every
+     16 waves: 4 frames of 1 spp (survivors deferred, pool, dropped, wall
+     time and leaf-row launches each), then spp=0 frames drain the pool (at
+     most 8): dropped 0, leaf-row launches > 0, and the total's energy
+     within 1e-4 of the 4 frames at wave cap 256 without deferral (the 4
+     frames capped at 8 printed beside it as the bias deferral recovers);
+     an instrumented frame at the bench knobs (waves, lane steps,
+     occupancy, deferred) bit-identical to render_frame with compaction
+     every wave, native lanes and no ladder; a max_bounces=32 frame, which
+     reads no live count, bit-identical to the unbounded frame at wave cap
+     32, both timed.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -258,6 +271,7 @@ import torch
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
+from surf_tpu_torch.app.renderer import RendererConfigHost, WavefrontRenderer
 from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, lane_extract,
                                   lane_splat, leaf_groups, leaf_visit, mask_reduce, mxu_parts,
                                   mxu_pltd, mxu_tiles, quant_visit, spec_visit, stack_visit,
@@ -2341,6 +2355,152 @@ def phase_op_micro(dev: torch.device) -> dict:
     return out
 
 
+DEFER_FRAMES = 4
+DEFER_CAP = 8      # the facade's wave cap in phase 12
+DRAINS = 8         # spp=0 frames allowed to empty the pool
+DRAIN_MIN = 0.1    # stop draining once a drain retires less of the pool
+DEFER_REL = 1e-4   # the deferred total's energy against the uncapped frames
+UNCAPPED = 256     # the uncapped frames' wave cap
+
+
+def _leaf_launches() -> dict:
+    return {k: leaf_rows.LAUNCHES[k] for k in PAIR}
+
+
+def _wall(fn, dev):
+    """(result, wall seconds) of fn() ending in a sync."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def phase_defer(dev: torch.device, w: int = W, h: int = H) -> None:
+    """Cross-frame deferral through the facade, and the other frame entry
+    points, on the indoor scene (bitsru8, 2048-ray packets, compaction
+    every 16 waves).  WavefrontRenderer(defer=True, wave_limit=8) renders
+    DEFER_FRAMES 1-spp frames (each frame's survivors deferred, the pool's
+    live count, dropped, wall time and leaf-row launches printed), then
+    spp=0 frames drain the pool (at most DRAINS, and none after a drain
+    that retires less than DRAIN_MIN of the pool's live paths: those left
+    are trapped paths that each further drain's 64 full-width waves barely
+    move): dropped must be 0 and the total's energy within DEFER_REL of
+    the same frames at wave cap
+    UNCAPPED without deferral (with the width ladder and Morton lanes,
+    which change no lane's result); the same frames capped at 8 without
+    deferral are printed beside it.  Then an instrumented frame at the
+    bench knobs (waves, lane steps, occupancy, deferred), bit-identical to
+    render_frame with compaction every wave, native lanes, no ladder; and a
+    max_bounces=32 frame, which reads no live count, bit-identical to the
+    unbounded frame capped at 32 waves.
+
+    The facade takes JAX's arguments, which do not set the packet size or
+    the compaction cadence, so the phase relies on three of its private
+    attributes: it sets ``_rcfg`` (the RenderConfig) and reads ``_carry``
+    (the FrameCarry) and ``_acc.buffer`` (the accumulated sums).  A rename
+    in ``app/renderer.py`` must follow here (``test_torch_facade`` reads
+    the same three)."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    camera = builtin.make_indoor_camera(w, h)
+    cam = CameraParams.from_camera(camera, dev)
+    knobs = dict(block_rays=BLOCK, compact=True, compact_every=BENCH_KNOBS["compact_every"])
+    wf = WavefrontRenderer(scene, camera, RendererConfigHost(samples_per_frame=1), dev,
+                           compact=True, defer=True, wave_limit=DEFER_CAP)
+    # the facade takes JAX's arguments; the bench's packet size and cadence
+    # are set on its config
+    wf._rcfg = cfg = wf._rcfg._replace(**knobs)
+    if cfg.algo != "bitsru8":
+        raise AssertionError(f"the facade renders the indoor scene with {cfg.algo}")
+    merged = []
+    merge = wi._merge_deferred
+
+    def spy(d, s, dropped):
+        merged.append(int(s.alive.sum()))
+        return merge(d, s, dropped)
+
+    launches = Counter()
+    with mock.patch.object(wi, "_merge_deferred", spy):
+        for frame in range(DEFER_FRAMES):
+            merged.clear()
+            leaf_rows.reset_launches()
+            _, dt = _wall(wf.render, dev)
+            n_leaf = _leaf_launches()
+            launches.update(n_leaf)
+            carry = wf._carry
+            say(f"[12 defer] frame {frame}: {sum(merged)} survivors deferred, pool live "
+                f"{int(carry.deferred.alive.sum())}, dropped {int(carry.dropped)}, "
+                f"{dt:.3f} s, leaf-row launches {n_leaf}")
+    total = float(np.float64(wf._acc.buffer).sum())
+    drain = cfg._replace(spp=0)
+    zeros = torch.zeros(w * h, dtype=torch.int64, device=dev)
+    carry = wf._carry
+    for k in range(DRAINS):
+        live = int(carry.deferred.alive.sum())
+        if live == 0:
+            break
+        leaf_rows.reset_launches()
+        (acc, _, carry), dt = _wall(
+            lambda: wi.render_frame_carry(scene, drain, cam, zeros, carry), dev)
+        launches.update(_leaf_launches())
+        total += float(acc.double().sum())
+        left = int(carry.deferred.alive.sum())
+        say(f"[12 defer] drain {k}: pool live {live} -> {left}, {dt:.3f} s")
+        if live - left < DRAIN_MIN * live:
+            break
+    dropped = int(carry.dropped)
+    if dropped != 0:
+        raise AssertionError(f"deferral dropped {dropped} paths")
+    for name, n in launches.items():
+        if n <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched by the deferral run")
+    # the uncapped frames with the bench's lane knobs: the width ladder and
+    # Morton lanes leave every lane's result as it is and make the long
+    # tail of narrow waves cheap
+    uncapped = cfg._replace(**BENCH_KNOBS)._replace(wave_limit=UNCAPPED)
+    ref, capped, t_ref, t_cap = 0.0, 0.0, 0.0, 0.0
+    for frame in range(DEFER_FRAMES):
+        img, dt = _wall(lambda: wi.render_frame(scene, uncapped, cam, frame, dev), dev)
+        ref += float(img.double().sum())
+        t_ref += dt
+        img, dt = _wall(lambda: wi.render_frame(scene, cfg, cam, frame, dev), dev)
+        capped += float(img.double().sum())
+        t_cap += dt
+    rel = (total - ref) / ref
+    say(f"[12 defer] {DEFER_FRAMES} frames: deferred and drained energy {total!r}, uncapped "
+        f"(wave cap {UNCAPPED}) {ref!r} ({t_ref:.3f} s), rel {rel:+.3e}; capped at "
+        f"{DEFER_CAP} without deferral {capped!r} ({t_cap:.3f} s), bias "
+        f"{(capped - ref) / ref:+.4%}; pool left {int(carry.deferred.alive.sum())}; "
+        f"leaf-row launches {dict(launches)}")
+    if not abs(rel) <= DEFER_REL:
+        raise AssertionError(f"deferred energy {total} vs uncapped {ref}: rel {rel:+.3e}")
+
+    bench = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    (img, st), dt = _wall(lambda: wi.render_frame_instrumented(scene, bench, cam, 0, dev), dev)
+    plain, dt_plain = _wall(lambda: wi.render_frame(
+        scene, bench._replace(compact_every=1, ladder=0, pixel_order="native"), cam, 0, dev),
+        dev)
+    if not torch.equal(img, plain):
+        raise AssertionError("the instrumented frame differs from render_frame")
+    say(f"[12 defer] instrumented frame at the bench knobs: waves {st['waves']}, lane steps "
+        f"{st['lane_steps']}, occupancy {st['occupancy']!r}, deferred {st['deferred']}, "
+        f"{dt:.3f} s; bit-identical to render_frame (compaction every wave, native lanes, "
+        f"no ladder, {dt_plain:.3f} s)")
+
+    cap = BENCH_KNOBS["wave_limit"]
+    unbounded, dt_u = _wall(lambda: wi.render_frame(
+        scene, bench._replace(ladder=0, wave_limit=cap), cam, 0, dev), dev)
+    with mock.patch.object(wi, "_run_waves", None):  # the loop that reads live counts
+        bounded, dt_b = _wall(lambda: wi.render_frame(
+            scene, bench._replace(ladder=0, max_bounces=cap), cam, 0, dev), dev)
+    if not torch.equal(bounded, unbounded):
+        raise AssertionError(f"the max_bounces={cap} frame differs from the frame capped at "
+                             f"{cap} waves")
+    say(f"[12 defer] max_bounces={cap} frame {dt_b:.3f} s (no live count read), bit-identical "
+        f"to the unbounded frame capped at {cap} waves {dt_u:.3f} s; energy "
+        f"{_check_image(bounded, 'bounded', 1)!r}")
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -2367,7 +2527,7 @@ KERNELS = {
     # design, the yardstick
     **{f"stream_walk_ilv_{m}": ("surf_tpu_torch/csrc/stream_walk_ilv.cu",
                                 "surf_tpu/accel/pallas_wide.py:264") for m in ("closest", "any")},
-    **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk.cu",
+    **{f"stream_walk_{a}_{m}": ("surf_tpu_torch/csrc/stream_walk_spec.cu",
                                 f"surf_tpu/accel/pallas_wide.py:{line}")
        for a, line in (("spec", 339), ("specb", 514)) for m in ("closest", "any")},
     **{f"dep_chain_{v}": ("surf_tpu_torch/csrc/dep_micro.cu", "scripts/tpu_dep_micro.py:222")
@@ -2455,6 +2615,7 @@ def main() -> int:
         micro = timed(label, phase, dev)
         kernels.update(micro)
         launches.update({k: v.pop("launches") for k, v in micro.items()})
+    timed("12 defer", phase_defer, dev)
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

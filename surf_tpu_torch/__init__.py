@@ -8,14 +8,28 @@ Mirrors ``surf_tpu``'s module names so each counterpart is easy to find:
                   instances, built-in scenes, camera) and the compiler that
                   builds a flattened ``TorchScene`` or a pure two-level
                   ``PureScene`` on a given device.
-- ``accel``     — the SAH builder and leaf-table packer, the ``bitsru8``
-                  traversal and the pure two-level instanced traversal,
-                  with their hand-written Hopper kernels
-                  (``csrc/leaf_rows.cu``, ``csrc/inst_rows.cu``).
+- ``accel``     — the SAH builder and leaf-table packer, and every
+                  traversal a render can reach (the ``bits*`` family, the
+                  8-wide stream walks, the binary walk, the pure two-level
+                  instanced walk), each through its hand-written Hopper
+                  kernels (``csrc/leaf_rows.cu``, ``inst_rows.cu``,
+                  ``stream_walk_ilv.cu``, ``stream_walk_spec.cu``,
+                  ``stream_walk_stack.cu``, ``bvh_walk_live.cu``; the
+                  first designs in ``stream_walk.cu`` and ``bvh_walk.cu``).
 - ``wavefront`` — the wavefront integrator: raygen, extend, shade, NEE,
-                  compaction and the width ladder, driven from the host.
-- ``micro``     — microbenchmarks of the card's mechanisms (``dep_chain``:
-                  the dependent-cursor chain, ``csrc/dep_micro.cu``).
+                  compaction and the width ladder, driven from the host;
+                  the frame entry points (``render_frame``,
+                  ``render_frame_seeded``, cross-frame deferral with
+                  ``render_frame_carry``, ``render_frame_instrumented``) and
+                  the progressive accumulator.
+- ``app``       — the progressive renderer facade
+                  (``app.renderer.WavefrontRenderer``).
+- ``micro``     — microbenchmarks of the card's mechanisms, one module per
+                  TPU script (``csrc/dep_micro.cu``, ``leaf_micro.cu``,
+                  ``visit_micro.cu``, ``shape_micro.cu``, ``mxu_micro.cu``,
+                  ``op_micro.cu``).
+- ``bench``, ``breakdown`` — ``bench.py``'s configuration on the card, and
+                  where a frame's device time goes.
 
 The package imports ``torch``, ``numpy`` and the standard library, and
 nothing of ``surf_tpu`` or ``jax``.

@@ -19,7 +19,15 @@ JAX runs the wave loop on the device in ``lax.while_loop``; here the host
 drives it.  The loop reads the live-lane count once per wave (a device
 sync), and the rejection samplers read their redraw flag once per round:
 the same checks at the same waves as the JAX loop, so per-lane results are
-unchanged.  Traversal is detached as in JAX; this slice takes no gradients.
+unchanged.  With ``max_bounces`` set the loop runs exactly that many waves
+and reads no live count (JAX's ``fori_loop``).  Traversal is detached as in
+JAX; this slice takes no gradients.
+
+Frame entry points, as in JAX: ``render_frame`` (seeds from the sample
+count), ``render_frame_seeded`` (continues given seeds),
+``render_frame_carry`` (cross-frame deferral: paths alive at the wave cap
+persist in a ``FrameCarry`` and resume next frame) and
+``render_frame_instrumented`` (the image and the wave statistics).
 """
 
 from __future__ import annotations
@@ -86,11 +94,13 @@ class RenderConfig(NamedTuple):
     ``bits*`` algo or a stream walk over the 8-wide layouts, and
     ``use_wide=False`` the binary packet walk.  ``cap_rows`` and
     ``pair_groups`` size the bits lists (0: BITS_CAP_ROWS, PAIR_GROUPS).  ``for_scene`` picks
-    "bitsru8" or "twolevelp" by the scene's type (``algo_of``), and
-    ``render_frame_seeded`` raises on an algo that is not ported or does
-    not fit the scene.  The wave loop always runs until every path has
-    terminated or ``wave_limit`` waves (JAX's ``max_bounces=None``
-    mode)."""
+    "bitsru8" or "twolevelp" by the scene's type (``algo_of``), and every
+    frame entry point raises on an algo that is not ported or does not fit
+    the scene.  With ``max_bounces=None`` the wave loop runs until every
+    path has terminated or ``wave_limit`` waves; with a count it runs
+    exactly that many waves, and the width ladder is off.  ``rr=False``
+    turns Russian roulette's kill and its 1/p weight off (its random number
+    is still drawn)."""
 
     width: int
     height: int
@@ -108,13 +118,16 @@ class RenderConfig(NamedTuple):
     use_wide: bool = True        # False: the binary walk (unless twolevelp)
     cap_rows: int = 0            # bits list capacity (0 = BITS_CAP_ROWS)
     pair_groups: int = 0         # bitsp per-ray groups (0 = PAIR_GROUPS)
+    max_bounces: int | None = None  # None: wave_limit-capped while loop
+    rr: bool = True              # Russian roulette's kill and 1/p weight
 
     @classmethod
     def for_scene(cls, scene: TorchScene | PureScene, width: int, height: int,
-                  spp: int, use_defocus: bool) -> "RenderConfig":
+                  spp: int, use_defocus: bool,
+                  max_bounces: int | None = None) -> "RenderConfig":
         return cls(width=width, height=height, spp=spp,
                    use_defocus=use_defocus, num_lights=scene.num_lights,
-                   algo=algo_of(scene))
+                   max_bounces=max_bounces, algo=algo_of(scene))
 
 
 class PathState(NamedTuple):
@@ -363,17 +376,20 @@ def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState
         seed, energy = _next_event(scene, cfg, seed, m_diff, I, N, brdf,
                                    s.transmission, energy)
 
-    # Russian roulette (renderer.cpp:446-454)
+    # Russian roulette (renderer.cpp:446-454).  cfg.rr=False turns the kill
+    # and the 1/p weight off; the draw is still consumed, so every other
+    # stream is unchanged (as in JAX).
     p = s.transmission.amax(dim=1).clamp(0.0, 1.0)
     seed, r_rr = rng.next_f32_masked(seed, m_diff)
-    rr_kill = m_diff & (p < r_rr)
+    rr_kill = m_diff & (p < r_rr) if cfg.rr else torch.zeros_like(m_diff)
     alive = alive & ~rr_kill
     m_diff_live = m_diff & ~rr_kill
     # pdf 1 on non-diffuse lanes and p floored at 1e-12 keep the masked
     # branch finite (as in JAX); neither changes a consumed value.
     diffuse_pdf = torch.where(m_diff, cos_theta * F32_INV_PI, 1.0)
     inv_pdf = 1.0 / diffuse_pdf
-    rr_scale = 1.0 / torch.where(m_diff, p.clamp(min=1e-12), 1.0)
+    rr_scale = (1.0 / torch.where(m_diff, p.clamp(min=1e-12), 1.0) if cfg.rr
+                else torch.ones_like(p))
     diff_trans = (
         s.transmission
         * cos_theta[:, None] * inv_pdf[:, None] * brdf
@@ -482,20 +498,30 @@ def _run_waves(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState,
                thresh: int | None = None):
     """Bounce while some lane is alive, fewer than wave_limit waves have run
     and (with ``thresh``) more than ``thresh`` lanes are alive.  One device
-    sync per wave reads the live count."""
+    sync per wave reads the live count.  Returns (waves run so far, state,
+    the live counts summed over the waves this call ran)."""
+    lane_steps = 0
     while i < cfg.wave_limit:
         live = int(s.alive.sum())
         if live == 0 or (thresh is not None and live <= thresh):
             break
+        lane_steps += live
         s = _wave(scene, cfg, i, s)
         i += 1
-    return i, s
+    return i, s, lane_steps
 
 
 def _bounce_loop(scene: TorchScene, cfg: RenderConfig,
                  state: PathState) -> PathState:
-    """Bounce until every path terminates or the wave cap."""
-    return _run_waves(scene, cfg, 0, state)[1]
+    """Bounce until every path terminates or the wave cap; with
+    ``max_bounces`` set, exactly that many waves and no live count read
+    (JAX's fori_loop).  Paths alive at the end contribute nothing more
+    unless a FrameCarry defers them."""
+    if cfg.max_bounces is None:
+        return _run_waves(scene, cfg, 0, state)[1]
+    for i in range(cfg.max_bounces):
+        state = _wave(scene, cfg, i, state)
+    return state
 
 
 def _bounce_loop_ladder(scene: TorchScene, cfg: RenderConfig, state: PathState):
@@ -518,11 +544,11 @@ def _bounce_loop_ladder(scene: TorchScene, cfg: RenderConfig, state: PathState):
     banked = []  # (pixel, seed, energy) of lanes retired from the loop
     i = 0
     for m in widths:
-        i, state = _run_waves(scene, cfg, i, state, m)
+        i, state, _ = _run_waves(scene, cfg, i, state, m)
         state = compact_paths(state)
         banked.append((state.pixel[m:], state.seed[m:], state.energy[m:]))
         state = PathState(*(x[:m] for x in state))
-    i, state = _run_waves(scene, cfg, i, state)
+    i, state, _ = _run_waves(scene, cfg, i, state)
     banked.append((state.pixel, state.seed, state.energy))
 
     seed_out = torch.zeros(n, dtype=state.seed.dtype, device=state.seed.device)
@@ -533,15 +559,14 @@ def _bounce_loop_ladder(scene: TorchScene, cfg: RenderConfig, state: PathState):
     return seed_out, energy_out
 
 
-def render_sample(scene: TorchScene, cfg: RenderConfig, vp: ViewPlane,
-                  seed, px, py, pixel_ids=None):
-    """One sample for every pixel lane: raygen + the full bounce loop.
-    ``pixel_ids`` maps lane i to a pixel other than i (morton order);
-    seed and energy come back in pixel order."""
+def _primary_paths(cfg: RenderConfig, vp: ViewPlane, seed, px, py,
+                   pixel_ids=None) -> PathState:
+    """Raygen and the fresh lane state of one sample: lane i owns pixel
+    ``pixel_ids[i]`` (i without it)."""
     seed, origin, direction = ray_generation(cfg, vp, seed, px, py)
     n = seed.shape[0]
     dev = seed.device
-    state = PathState(
+    return PathState(
         origin=origin,
         direction=direction,
         seed=seed,
@@ -552,13 +577,27 @@ def render_sample(scene: TorchScene, cfg: RenderConfig, vp: ViewPlane,
         alive=torch.ones(n, dtype=torch.bool, device=dev),
         pixel=(torch.arange(n, device=dev) if pixel_ids is None else pixel_ids),
     )
-    if cfg.ladder > 0:
+
+
+def _in_pixel_order(state: PathState):
+    """(seed, energy) of a lane permutation, back in pixel order (the
+    inverse permutation is one scatter)."""
+    order = torch.empty_like(state.pixel)
+    order[state.pixel] = torch.arange(state.pixel.shape[0], device=state.pixel.device)
+    return state.seed[order], state.energy[order]
+
+
+def render_sample(scene: TorchScene, cfg: RenderConfig, vp: ViewPlane,
+                  seed, px, py, pixel_ids=None):
+    """One sample for every pixel lane: raygen + the full bounce loop.
+    ``pixel_ids`` maps lane i to a pixel other than i (morton order);
+    seed and energy come back in pixel order."""
+    state = _primary_paths(cfg, vp, seed, px, py, pixel_ids)
+    if cfg.ladder > 0 and cfg.max_bounces is None:
         return _bounce_loop_ladder(scene, cfg, state)
     state = _bounce_loop(scene, cfg, state)
     if cfg.compact or pixel_ids is not None:
-        order = torch.empty_like(state.pixel)
-        order[state.pixel] = torch.arange(n, device=dev)
-        return state.seed[order], state.energy[order]
+        return _in_pixel_order(state)
     return state.seed, state.energy
 
 
@@ -580,17 +619,28 @@ def lane_pixel_perm(cfg: RenderConfig, device: torch.device):
     return torch.as_tensor(np.argsort(code, kind="stable"), device=device)
 
 
-def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
-                        cam: CameraParams, seed0: torch.Tensor):
-    """Render cfg.spp samples continuing the per-pixel seed streams
-    ``seed0``; returns (radiance sums [H, W, 3], final seeds).  Chunking a
-    large spp budget into several calls gives the same image as one call."""
+def _check_algo(scene: TorchScene | PureScene, cfg: RenderConfig) -> None:
+    """Raises unless cfg.algo is ported and renders this kind of scene."""
     pure = isinstance(scene, PureScene)
     if not is_ported(cfg.algo) or pure != (cfg.algo == "twolevelp"):
         fits = "twolevelp" if pure else "bits*, a stream walk or use_wide=False"
         raise ValueError(f"algo={cfg.algo!r} does not render a {type(scene).__name__} "
                          f"(it renders with {fits}; the ported algos are {ALGOS} and "
                          f"every bits* string of traverse_wide)")
+
+
+def _native_lanes(cfg: RenderConfig, device: torch.device):
+    """(px, py) of native row-major lanes."""
+    lane = torch.arange(cfg.width * cfg.height, device=device)
+    return lane % cfg.width, lane // cfg.width
+
+
+def render_frame_seeded(scene: TorchScene, cfg: RenderConfig,
+                        cam: CameraParams, seed0: torch.Tensor):
+    """Render cfg.spp samples continuing the per-pixel seed streams
+    ``seed0``; returns (radiance sums [H, W, 3], final seeds).  Chunking a
+    large spp budget into several calls gives the same image as one call."""
+    _check_algo(scene, cfg)
     vp = view_plane(cam, cfg.width, cfg.height)
     n = cfg.width * cfg.height
     dev = seed0.device
@@ -614,3 +664,160 @@ def initial_seeds(cfg: RenderConfig, total_samples: int,
     n = cfg.width * cfg.height
     return rng.pixel_seed(torch.arange(n, dtype=torch.int64, device=device),
                           total_samples)
+
+
+def render_frame(scene: TorchScene, cfg: RenderConfig, cam: CameraParams,
+                 total_samples: int, device: torch.device) -> torch.Tensor:
+    """One frame of cfg.spp samples a pixel, seeded from the accumulated
+    sample count; returns the radiance sums [H, W, 3] (divide by the sample
+    count outside)."""
+    acc, _ = render_frame_seeded(scene, cfg, cam,
+                                 initial_seeds(cfg, total_samples, device))
+    return acc
+
+
+# --------------------------------------------------------------------------
+# Cross-frame deferral (renderer.cpp:27-29, 1101-1104): paths still alive at
+# the wave cap persist in a FrameCarry and resume in the next frame with
+# their own seed streams, so the cap's estimator bias is zero once the pool
+# has drained.
+# --------------------------------------------------------------------------
+
+DEFER_DRAIN = 64  # the drain's least wave cap (JAX's RenderConfig.defer_drain)
+
+class FrameCarry(NamedTuple):
+    """The deferred paths: a fixed pool of W*H lanes whose live lanes form
+    a prefix (``deferred.alive``; ``deferred.pixel`` routes their energy),
+    and ``dropped`` [] int64, the survivors that found the pool full."""
+
+    deferred: PathState
+    dropped: torch.Tensor
+
+
+def empty_frame_carry(cfg: RenderConfig, device: torch.device) -> FrameCarry:
+    n = cfg.width * cfg.height
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device=device)
+
+    return FrameCarry(
+        deferred=PathState(
+            origin=z(n, 3), direction=z(n, 3), seed=z(n, dtype=torch.int64),
+            transmission=z(n, 3), energy=z(n, 3),
+            last_specular=z(n, dtype=torch.bool), in_medium=z(n, dtype=torch.bool),
+            alive=z(n, dtype=torch.bool), pixel=z(n, dtype=torch.int64),
+        ),
+        dropped=z((), dtype=torch.int64),
+    )
+
+
+def _merge_deferred(d: PathState, s: PathState, dropped: torch.Tensor):
+    """Append s's live lanes, compacted, after the pool's m live lanes
+    (the pool ``d`` is live-prefix compact and stays so); the survivors
+    past the pool's end, the last in compacted order, are lost and counted
+    into ``dropped``.  Device ops only: no sync."""
+    n = d.alive.shape[0]
+    s = compact_paths(s)
+    m = d.alive.sum()
+    k = s.alive.sum()
+    idx = torch.arange(n, device=d.alive.device)
+    src = (idx - m).clamp(0, n - 1)
+    take_new = (idx >= m) & (idx < m + k)
+
+    def mix(df, sf):
+        mask = take_new if df.dim() == 1 else take_new[:, None]
+        return torch.where(mask, sf[src], df)
+
+    merged = PathState(*(mix(df, sf) for df, sf in zip(d, s)))
+    return merged, dropped + (m + k - n).clamp(min=0)
+
+
+def _continue_deferred(scene: TorchScene, cfg: RenderConfig, carry: FrameCarry):
+    """Run the wave loop over the pool (at least DEFER_DRAIN waves,
+    compacting); bank its new energy by pixel, zero it in the pool and
+    re-compact it.  Returns (energy [N, 3] by pixel, carry)."""
+    n = carry.deferred.alive.shape[0]
+    drain_cfg = cfg._replace(
+        wave_limit=max(cfg.wave_limit, DEFER_DRAIN), compact=True,
+        compact_every=min(cfg.compact_every, 4) if cfg.compact else 4)
+    d = _bounce_loop(scene, drain_cfg, carry.deferred)
+    # with spp > 1 two pool lanes can own one pixel: a scatter-add
+    add = torch.zeros(n, 3, device=d.energy.device).index_add_(0, d.pixel, d.energy)
+    d = d._replace(energy=torch.zeros_like(d.energy))
+    # the drain's last waves may kill lanes after its last compaction
+    return add, carry._replace(deferred=compact_paths(d))
+
+
+def render_sample_deferring(scene: TorchScene, cfg: RenderConfig,
+                            vp: ViewPlane, seed, px, py):
+    """render_sample that keeps the capped-out paths: (next seeds, energy
+    [N, 3] by pixel, the lane state with its energy zeroed).  Native lanes
+    and the plain bounce loop whatever cfg.pixel_order and cfg.ladder say,
+    as in JAX."""
+    state = _bounce_loop(scene, cfg, _primary_paths(cfg, vp, seed, px, py))
+    n = state.seed.shape[0]
+    energy = torch.zeros(n, 3, device=state.energy.device).index_add_(
+        0, state.pixel, state.energy)
+    seed_out = torch.zeros_like(state.seed)
+    seed_out[state.pixel] = state.seed
+    return seed_out, energy, state._replace(energy=torch.zeros_like(state.energy))
+
+
+def render_frame_carry(scene: TorchScene, cfg: RenderConfig, cam: CameraParams,
+                       seed0: torch.Tensor, carry: FrameCarry):
+    """One frame with cross-frame deferral: drain last frame's pool (its
+    energy first), render cfg.spp fresh samples, and defer this frame's
+    capped-out paths.  Returns (radiance sums [H, W, 3], next seeds, next
+    carry); with spp=0 it only drains."""
+    _check_algo(scene, cfg)
+    vp = view_plane(cam, cfg.width, cfg.height)
+    px, py = _native_lanes(cfg, seed0.device)
+    acc, carry = _continue_deferred(scene, cfg, carry)
+    seed = seed0
+    for _ in range(cfg.spp):
+        seed, energy, surv = render_sample_deferring(scene, cfg, vp, seed, px, py)
+        carry = FrameCarry(*_merge_deferred(carry.deferred, surv, carry.dropped))
+        acc = acc + energy
+    return acc.reshape(cfg.height, cfg.width, 3), seed, carry
+
+
+def render_sample_instrumented(scene: TorchScene, cfg: RenderConfig,
+                               vp: ViewPlane, seed, px, py):
+    """render_sample with wave statistics: (seed, energy, {waves,
+    lane_steps, deferred}): lane_steps sums the live lanes over the waves,
+    deferred counts the paths alive at the cap.  Native lanes, no ladder,
+    compaction on every wave with cfg.compact, the cap max_bounces if set
+    (else wave_limit), and the loop stops when no lane is alive: JAX's
+    semantics.  The loop reads the live count each wave, so lane_steps is
+    free."""
+    limit = cfg.wave_limit if cfg.max_bounces is None else cfg.max_bounces
+    waves, state, lane_steps = _run_waves(
+        scene, cfg._replace(wave_limit=limit, compact_every=1), 0,
+        _primary_paths(cfg, vp, seed, px, py))
+    deferred = int(state.alive.sum())
+    seed_out, energy = _in_pixel_order(state) if cfg.compact else (state.seed, state.energy)
+    return seed_out, energy, dict(waves=waves, lane_steps=lane_steps, deferred=deferred)
+
+
+def render_frame_instrumented(scene: TorchScene, cfg: RenderConfig,
+                              cam: CameraParams, total_samples: int,
+                              device: torch.device):
+    """One frame seeded from ``total_samples`` and its wave statistics,
+    summed over the samples: (radiance sums [H, W, 3], {waves, lane_steps,
+    deferred, occupancy}); occupancy = lane_steps / (waves * W * H) in
+    float32, as JAX computes it."""
+    _check_algo(scene, cfg)
+    vp = view_plane(cam, cfg.width, cfg.height)
+    n = cfg.width * cfg.height
+    px, py = _native_lanes(cfg, device)
+    seed = initial_seeds(cfg, total_samples, device)
+    acc = torch.zeros(n, 3, device=device)
+    total = dict(waves=0, lane_steps=0, deferred=0)
+    for _ in range(cfg.spp):
+        seed, energy, st = render_sample_instrumented(scene, cfg, vp, seed, px, py)
+        acc = acc + energy
+        total = {k: total[k] + st[k] for k in total}
+    f32 = np.float32
+    total["occupancy"] = float(f32(total["lane_steps"])
+                               / np.maximum(f32(total["waves"]) * f32(n), f32(1.0)))
+    return acc.reshape(cfg.height, cfg.width, 3), total
