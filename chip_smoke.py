@@ -54,7 +54,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      compaction every 16 waves, ladder 6 / shrink 2) through the leaf-row
      kernel: frame time, rays/s, energy and the kernel's launch counts;
   4b. twolevelp bench: the 32-instance stress scene, pure two-level, at
-     512x512 @ 16 spp with the bench knobs through the instanced kernel:
+     512x512 @ 16 spp (one timed frame after a warm-up spp) with the bench
+     knobs through the instanced kernel:
      frame time, rays/s, energy, launches, peak memory and the scene's
      device bytes against the flattened compile of the same scene, whose
      bitsru8 frame is timed beside it (the bytes of the tensors a render
@@ -252,12 +253,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      every wave, native lanes and no ladder; a max_bounces=32 frame, which
      reads no live count, bit-identical to the unbounded frame at wave cap
      32, both timed.
+  13. grad: a trainer's step through the differentiable estimator
+     (surf_tpu_torch.diff) on the indoor scene at 512x512, 1 spp, bitsru8,
+     the bench's packet knobs and max_bounces=12 (the ladder off): the
+     forward alone under no_grad; then the step's forward (image_loss) and
+     backward (torch.autograd.grad) timed apart, their ratio, peak memory
+     and leaf-row launches (the forward's: no wave checkpointed), the loss
+     bit-equal to grad_image_loss's and every gradient finite and within
+     1e-5 of the leaf's largest |g|; the same with all but 3.5 GiB of the
+     card held, where the integrator checkpoints the waves (more
+     launches, the loss bit-equal, the gradients within 1e-5); with
+     rr=False, AD of the largest albedo entry against a central
+     difference (h 4e-3, loss in float64) within 1e-3 relative; two steps
+     under torch.use_deterministic_algorithms, bit-equal.  Timing lines
+     name the card.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -268,10 +284,13 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
 from surf_tpu_torch.app.renderer import RendererConfigHost, WavefrontRenderer
+from surf_tpu_torch.diff import (DiffTargets, finite_difference, grad_image_loss, image_loss,
+                                 render_image_diff, tree_flatten)
 from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, lane_extract,
                                   lane_splat, leaf_groups, leaf_visit, mask_reduce, mxu_parts,
                                   mxu_pltd, mxu_tiles, quant_visit, spec_visit, stack_visit,
@@ -285,6 +304,7 @@ TPU_ENERGY = 87157.2109375  # surf_tpu on a TPU v5e, BENCH_r05.json
 W = H = 512
 SPP = 16
 STRESS_N = 32
+STRESS_FRAMES = 1  # 4b's timed frames of each compile (2 until phase 13 took their time)
 BENCH_KNOBS = wi.BENCH_KNOBS
 BLOCK = BENCH_KNOBS["block_rays"]
 # The least time the card could take for the same work: H100 SXM
@@ -446,12 +466,16 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize()
 
 
+CARD = {"smi": "not a GPU run"}  # nvidia-smi's name and power limit, for timing lines
+
+
 def phase_device() -> torch.device:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    CARD["smi"] = smi
     say(smi)
     say(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -1195,7 +1219,7 @@ def phase_twolevelp_bench(dev: torch.device, w: int = W, h: int = H, spp: int = 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     inst_rows.reset_launches()
-    times, img = _timed_frames(ps, cfg, cam, dev, spp, 2)
+    times, img = _timed_frames(ps, cfg, cam, dev, spp, STRESS_FRAMES)
     launches = dict(inst_rows.LAUNCHES)
     energy = _check_image(img, "twolevelp bench", spp)
     for name in inst_rows.FIRST_DESIGNS:
@@ -1215,7 +1239,7 @@ def phase_twolevelp_bench(dev: torch.device, w: int = W, h: int = H, spp: int = 
     fcfg = wi.RenderConfig.for_scene(fs, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
     _render(fs, fcfg, cam, dev, 0, 1)  # warm-up
     _sync(dev)
-    f_times, f_img = _timed_frames(fs, fcfg, cam, dev, spp, 2)
+    f_times, f_img = _timed_frames(fs, fcfg, cam, dev, spp, STRESS_FRAMES)
     f_energy = _check_image(f_img, "flattened stress bench", spp)
     f_dt = sum(f_times) / len(f_times)
     say(f"[4b twolevelp] flattened bitsru8 of the same scene: frame times "
@@ -2501,6 +2525,226 @@ def phase_defer(dev: torch.device, w: int = W, h: int = H) -> None:
         f"{_check_image(bounded, 'bounded', 1)!r}")
 
 
+GRAD_BOUNCES = 12  # phase 13's static wave count (the ladder is off)
+GRAD_REL = 1e-5  # a gradient against another run's, of the leaf's max |g| (atomics' order)
+GRAD_FD_H = 4e-3  # tests/test_grads.py:187's step
+GRAD_FD_REL = 1e-3  # ... and its gate on |FD - AD| / |AD|
+GRAD_FREE_LEFT = 3.5 * 2**30  # the card's memory left free in the checkpointed cell
+
+
+def _peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _check_grads(loss, grads, n_leaf, dev, label: str) -> None:
+    """Each leaf-row entry point launched, the loss and every gradient
+    leaf finite."""
+    for name, n in n_leaf.items():
+        if n <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched by the {label} gradient step")
+    for f, g in zip(("albedo", "emission_color", "emission_strength", "absorption",
+                     *(f"camera.{c}" for c in CameraParams._fields)), tree_flatten(grads)[0]):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: the gradient of {f} is not finite")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{label}: the loss {float(loss)} is not finite")
+
+
+def _grad_step(scene, cfg, targets, dev, label: str):
+    """One grad_image_loss call: (loss, grads, wall s, peak GiB, leaf-row
+    launches); the gradients must be finite."""
+    _reset_peak(dev)
+    leaf_rows.reset_launches()
+    (loss, grads), dt = _wall(lambda: grad_image_loss(scene, cfg, targets, 0, dev), dev)
+    peak, n_leaf = _peak_gib(dev), _leaf_launches()
+    _check_grads(loss, grads, n_leaf, dev, label)
+    return loss, grads, dt, peak, n_leaf
+
+
+def _split_step(scene, cfg, targets, dev, label: str):
+    """grad_image_loss's two halves, each timed: image_loss on copies of
+    the leaves that require grad (the forward, recording autograd's tape),
+    then torch.autograd.grad (the backward).  Returns (loss, grads, forward
+    s, backward s, peak GiB, leaf-row launches); the gradients must be
+    finite."""
+    leaves, unflatten = tree_flatten(targets)
+    leaves = [x.detach().clone().requires_grad_(True) for x in leaves]
+    _reset_peak(dev)
+    leaf_rows.reset_launches()
+    loss, t_f = _wall(lambda: image_loss(scene, cfg, unflatten(leaves), 0, dev), dev)
+    grads, t_b = _wall(lambda: torch.autograd.grad(loss, leaves, allow_unused=True), dev)
+    grads = unflatten([torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)])
+    peak, n_leaf = _peak_gib(dev), _leaf_launches()
+    loss = loss.detach()
+    _check_grads(loss, grads, n_leaf, dev, label)
+    return loss, grads, t_f, t_b, peak, n_leaf
+
+
+def _grads_close(grads, ref, label: str) -> float:
+    """The largest difference of a gradient leaf from ref's, relative to
+    that leaf's max |g|; raises above GRAD_REL."""
+    worst = 0.0
+    for k, (g, r) in enumerate(zip(tree_flatten(grads)[0], tree_flatten(ref)[0])):
+        scale = float(r.abs().max())
+        err = float((g - r).abs().max())
+        if not err <= GRAD_REL * scale:
+            raise AssertionError(f"{label}: gradient leaf {k} differs by {err} (max |g| {scale})")
+        worst = max(worst, err / scale if scale > 0 else 0.0)
+    return worst
+
+
+@contextlib.contextmanager
+def _ballast(dev):
+    """Hold all of the card's memory but GRAD_FREE_LEFT (what the rest of
+    a trainer's process would hold: its data, its other models); yields
+    the bytes held.  Off the card the integrator is told that nothing is
+    free instead."""
+    if dev.type != "cuda":
+        with mock.patch.object(wi, "_free_bytes", lambda device: 0):
+            yield 0
+        return
+    torch.cuda.empty_cache()
+    n = int(wi._free_bytes(dev) - GRAD_FREE_LEFT)
+    block = torch.empty(n, dtype=torch.uint8, device=dev)
+    try:
+        yield n
+    finally:
+        del block
+        torch.cuda.empty_cache()
+
+
+def phase_grad(dev: torch.device, w: int = W, h: int = H) -> None:
+    """A trainer's step through the differentiable estimator
+    (surf_tpu_torch.diff) on the indoor scene at w x h, 1 spp,
+    use_defocus, the bench's packet knobs (bitsru8, 2048-ray packets,
+    compaction every 16 waves, Morton lanes) and max_bounces=GRAD_BOUNCES
+    (the ladder off).  (a) The forward alone under no_grad, timed.  A
+    first grad_image_loss call (every DiffTargets leaf finite).  (b) Its
+    two halves timed apart, image_loss (the forward with autograd's tape)
+    and torch.autograd.grad (the backward), their ratio, peak memory and
+    the leaf-row launches (counted from 0 around the step): the loss
+    bit-equal to the first call's, the gradients within GRAD_REL of it
+    (the backward's index_add_ are atomics on the card), the albedo
+    gradient nonzero, and the launches the forward's (no wave
+    checkpointed with the card's memory free).  (c) The same with all but
+    GRAD_FREE_LEFT of the card's memory held: the integrator checkpoints
+    the waves after the first (more launches: the backward runs them
+    again), the loss bit-equal and the gradients within GRAD_REL of (b)'s.
+    (d) rr=False: AD of the largest albedo entry against the central
+    difference at h=GRAD_FD_H of the loss reduced in float64, relative
+    error under GRAD_FD_REL.  (e) Under torch.use_deterministic_algorithms:
+    two grad_image_loss calls, bit-equal to each other and within GRAD_REL
+    of (b)'s.  Every timing line names the card."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS)._replace(max_bounces=GRAD_BOUNCES)
+    if cfg.algo != "bitsru8":
+        raise AssertionError(f"the gradient step renders the indoor scene with {cfg.algo}")
+    targets = DiffTargets.from_scene(scene, cam)
+    card = CARD["smi"]
+
+    with torch.no_grad():
+        render_image_diff(scene, cfg, targets, 0, dev)  # warm-up: allocator, first launches
+        _reset_peak(dev)
+        leaf_rows.reset_launches()
+        img, t_fwd = _wall(lambda: render_image_diff(scene, cfg, targets, 0, dev), dev)
+    fwd_peak, fwd_leaf = _peak_gib(dev), _leaf_launches()
+    _check_image(img, "grad forward", 1)
+    say(f"[13 grad] {w}x{h} @ 1 spp, max_bounces {GRAD_BOUNCES}, bitsru8: forward alone "
+        f"(no_grad) {t_fwd:.3f} s, peak memory {fwd_peak:.2f} GiB, leaf-row launches "
+        f"{fwd_leaf} ({card})")
+
+    loss0, grads0, t_first, _, _ = _grad_step(scene, cfg, targets, dev, "first")
+    loss, grads, t_f, t_b, peak, n_leaf = _split_step(scene, cfg, targets, dev, "plain")
+    if not torch.equal(loss, loss0):
+        raise AssertionError(f"the split step's loss {float(loss)!r} differs from "
+                             f"grad_image_loss's {float(loss0)!r}")
+    worst0 = _grads_close(grads, grads0, "the split step against grad_image_loss")
+    if not float(grads.albedo.abs().sum()) > 0:
+        raise AssertionError("the albedo gradient is zero")
+    if n_leaf != fwd_leaf:
+        raise AssertionError(f"the gradient step launched {n_leaf}, the forward {fwd_leaf}: "
+                             "a wave was checkpointed with the card's memory free")
+    say(f"[13 grad] gradient step: loss {float(loss)!r}, forward with tape {t_f:.3f} s, "
+        f"backward {t_b:.3f} s, backward/forward {t_b / t_f:.3f}, peak memory {peak:.2f} GiB, "
+        f"leaf-row launches {n_leaf}, free {wi._free_bytes(dev) / 2**30:.2f} GiB; "
+        f"grad_image_loss's first call {t_first:.3f} s, within {worst0:.3e} ({card})")
+
+    ckpt, ckpt_dt = torch.utils.checkpoint.checkpoint, []
+
+    def timed_checkpoint(*args, **kw):  # the first call imports torch._dynamo
+        if not ckpt_dt:
+            t0 = time.perf_counter()
+            out = ckpt(*args, **kw)
+            ckpt_dt.append(time.perf_counter() - t0)
+            return out
+        return ckpt(*args, **kw)
+
+    with _ballast(dev) as held, \
+            mock.patch.object(torch.utils.checkpoint, "checkpoint", timed_checkpoint):
+        free = wi._free_bytes(dev)
+        _split_step(scene, cfg, targets, dev, "first checkpointed")
+        loss_r, grads_r, t_fr, t_br, peak_r, n_leaf_r = _split_step(
+            scene, cfg, targets, dev, "checkpointed")
+    peak_r -= held / 2**30
+    if dev.type == "cuda" and not all(n_leaf_r[k] > n_leaf[k] for k in n_leaf):
+        raise AssertionError(f"with {free / 2**30:.2f} GiB free the step launched "
+                             f"{n_leaf_r}, as many as with the card free: no wave was "
+                             "checkpointed")
+    if not torch.equal(loss_r, loss):
+        raise AssertionError(f"the checkpointed loss {float(loss_r)!r} differs from "
+                             f"{float(loss)!r}")
+    worst = _grads_close(grads_r, grads, "checkpointed")
+    say(f"[13 grad] {free / 2**30:.2f} GiB free (the rest held): waves checkpointed, forward "
+        f"with tape {t_fr:.3f} s, backward {t_br:.3f} s, backward/forward {t_br / t_fr:.3f}, "
+        f"peak memory {peak_r:.2f} GiB beside what is held, leaf-row launches {n_leaf_r}; "
+        f"the first checkpoint {ckpt_dt[0]:.3f} s (imports torch._dynamo); loss bit-equal, "
+        f"gradients within {worst:.3e} of each leaf's max |g| ({card})")
+
+    cfg_n = cfg._replace(rr=False)
+    (_, grads_n), t_n = _wall(lambda: grad_image_loss(scene, cfg_n, targets, 0, dev), dev)
+    ga = grads_n.albedo.double().cpu().numpy()
+    e = np.unravel_index(int(np.argmax(np.abs(ga))), ga.shape)
+    ad = float(ga[e])
+
+    def f(t):
+        return image_loss(scene, cfg_n, t, 0, dev, loss_fn=lambda im: im.double().mean())
+
+    with torch.no_grad():
+        fd, t_fd = _wall(lambda: finite_difference(f, targets, GRAD_FD_H, [(0, e)]), dev)
+    fd = float(fd.albedo[e])
+    rel = abs(fd - ad) / abs(ad)
+    say(f"[13 grad] rr=False: d loss / d albedo{tuple(int(i) for i in e)} AD {ad!r} "
+        f"({t_n:.3f} s), central difference at h={GRAD_FD_H} {fd!r} ({t_fd:.3f} s for 2 "
+        f"frames), relative error {rel:.3e} (gate {GRAD_FD_REL}) ({card})")
+    if not rel < GRAD_FD_REL:
+        raise AssertionError(f"AD {ad} against FD {fd}: relative error {rel:.3e}")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [_grad_step(scene, cfg, targets, dev, f"deterministic {k}") for k in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (loss_d, grads_d, t_d0, _, _), (loss_d1, grads_d1, t_d1, _, _) = runs
+    if not (torch.equal(loss_d, loss_d1) and all(
+            torch.equal(a, b) for a, b in zip(tree_flatten(grads_d)[0],
+                                              tree_flatten(grads_d1)[0]))):
+        raise AssertionError("two deterministic gradient steps differ")
+    if not torch.equal(loss_d, loss):
+        raise AssertionError(f"the deterministic loss {float(loss_d)!r} differs from "
+                             f"{float(loss)!r}")
+    worst_d = _grads_close(grads_d, grads, "deterministic")
+    say(f"[13 grad] torch.use_deterministic_algorithms(True): grad_image_loss {t_d0:.3f} s, "
+        f"{t_d1:.3f} s, bit-equal to each other, within {worst_d:.3e} of the step's "
+        f"gradients ({card})")
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -2616,6 +2860,7 @@ def main() -> int:
         kernels.update(micro)
         launches.update({k: v.pop("launches") for k, v in micro.items()})
     timed("12 defer", phase_defer, dev)
+    timed("13 grad", phase_grad, dev)
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

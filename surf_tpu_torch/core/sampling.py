@@ -36,16 +36,20 @@ def cosine_hemisphere(seed: torch.Tensor, normal: torch.Tensor,
                       active: torch.Tensor):
     """randomOnHemisphereCosineWeighted (surf_math.cpp:116-134): two f32
     draws, redrawn while dot(out, n) == 0.  Only ``active`` lanes consume
-    randoms.  Returns (seed, direction)."""
+    randoms.  Returns (seed, direction).  As in JAX, the rejection test
+    reads a detached normal and the returned direction is built from the
+    live one, so d(direction)/d(normal) flows and the redraws record no
+    graph."""
+    n_det = normal.detach()
     seed, r0 = rng.next_f32_masked(seed, active)
     seed, r1 = rng.next_f32_masked(seed, active)
-    need = active & (dot(_tangent_frame_dir(r0, r1, normal), normal) == 0.0)
+    need = active & (dot(_tangent_frame_dir(r0, r1, n_det), n_det) == 0.0)
     while bool(need.any()):
         seed, r0n = rng.next_f32_masked(seed, need)
         seed, r1n = rng.next_f32_masked(seed, need)
         r0 = torch.where(need, r0n, r0)
         r1 = torch.where(need, r1n, r1)
-        need = need & (dot(_tangent_frame_dir(r0, r1, normal), normal) == 0.0)
+        need = need & (dot(_tangent_frame_dir(r0, r1, n_det), n_det) == 0.0)
     return seed, _tangent_frame_dir(r0, r1, normal)
 
 

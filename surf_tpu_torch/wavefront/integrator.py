@@ -20,8 +20,16 @@ drives it.  The loop reads the live-lane count once per wave (a device
 sync), and the rejection samplers read their redraw flag once per round:
 the same checks at the same waves as the JAX loop, so per-lane results are
 unchanged.  With ``max_bounces`` set the loop runs exactly that many waves
-and reads no live count (JAX's ``fori_loop``).  Traversal is detached as in
-JAX; this slice takes no gradients.
+and reads no live count (JAX's ``fori_loop``).
+
+Gradients flow as in JAX (``surf_tpu_torch.diff``): autograd records the
+host-driven loop, every traversal gets detached rays (its hit only picks
+the triangle, which ``_reintersect`` intersects again differentiably), and
+the discrete decisions (lobe, light, Fresnel, Russian roulette and its 1/p
+weight, the rejection samplers' tests) read detached values.  A bounce
+loop measures the tape of its first wave; when the tape of all its waves
+would take more than ``TAPE_SHARE`` of the device's free memory, the later
+waves are checkpointed and run again in the backward pass (``_stepper``).
 
 Frame entry points, as in JAX: ``render_frame`` (seeds from the sample
 count), ``render_frame_seeded`` (continues given seeds),
@@ -32,10 +40,12 @@ persist in a ``FrameCarry`` and resume next frame) and
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..accel.bits import Hit, parse_algo, traverse_bits
 from ..accel.bvh_walk import traverse_binary
@@ -243,8 +253,18 @@ def _sample_background(scene: TorchScene, direction):
             + (1.0 - alpha)[:, None] * scene.bg_gradient_a)
 
 
+def _material(table: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """The rows of a material table, one a lane.  ``index_select``, whose
+    backward is one ``index_add_``: indexing's backward sorts the lanes by
+    row and walks each row's lanes in one warp, and a table has a few rows
+    for 262,144 lanes (28 ms a call at 512² on an H100, against a wave's
+    ~25 ms: ``python -m surf_tpu_torch.breakdown --grad``)."""
+    return table.index_select(0, mat)
+
+
 def _emittance(scene: TorchScene, mat):
-    return scene.mat_emission_strength[mat, None] * scene.mat_emission_color[mat]
+    return (_material(scene.mat_emission_strength, mat)[:, None]
+            * _material(scene.mat_emission_color, mat))
 
 
 def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState:
@@ -252,8 +272,8 @@ def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState
     n = s.origin.shape[0]
     dev = s.origin.device
 
-    # ---- EXTEND: closest hit ---------------------------------------------
-    hit, hit_inst = _traverse(scene, cfg, s.origin, s.direction,
+    # ---- EXTEND: closest hit, detached ----------------------------------
+    hit, hit_inst = _traverse(scene, cfg, s.origin.detach(), s.direction.detach(),
                               torch.full((n,), F32_FAR_AWAY, device=dev),
                               s.alive, any_hit=False)
     found = hit.prim >= 0
@@ -307,7 +327,7 @@ def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState
     v = torch.where(found, v, 0.25)
     medium_scale = torch.where(
         s.in_medium[:, None],
-        torch.exp(scene.mat_absorption[mat] * -t[:, None]),
+        torch.exp(_material(scene.mat_absorption, mat) * -t[:, None]),
         1.0,
     )
     I = s.origin + t[:, None] * s.direction
@@ -319,7 +339,7 @@ def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState
 
     refl = scene.mat_reflectivity[mat]
     refr = scene.mat_refractivity[mat]
-    albedo = scene.mat_albedo[mat]
+    albedo = _material(scene.mat_albedo, mat)
     m_spec = alive & (r_lobe < refl)
     m_diel = alive & ~m_spec & (r_lobe < refl + refr)
     m_diff = alive & ~m_spec & ~m_diel
@@ -385,10 +405,12 @@ def bounce_step(scene: TorchScene, cfg: RenderConfig, s: PathState) -> PathState
     alive = alive & ~rr_kill
     m_diff_live = m_diff & ~rr_kill
     # pdf 1 on non-diffuse lanes and p floored at 1e-12 keep the masked
-    # branch finite (as in JAX); neither changes a consumed value.
+    # branch finite (as in JAX); neither changes a consumed value.  The
+    # 1/p weight is detached as in JAX: p is part of the sampling measure,
+    # fixed at the linearization point.
     diffuse_pdf = torch.where(m_diff, cos_theta * F32_INV_PI, 1.0)
     inv_pdf = 1.0 / diffuse_pdf
-    rr_scale = (1.0 / torch.where(m_diff, p.clamp(min=1e-12), 1.0) if cfg.rr
+    rr_scale = (1.0 / torch.where(m_diff, p.clamp(min=1e-12), 1.0).detach() if cfg.rr
                 else torch.ones_like(p))
     diff_trans = (
         s.transmission
@@ -472,8 +494,9 @@ def _next_event(scene: TorchScene, cfg: RenderConfig, seed, m_diff, I, N,
     cos_li = dot(p_nrm, -L)
     nee_ok = m_diff & (cos_o > 0) & (cos_li > 0)
 
-    # CONNECT: any-hit occlusion
-    occ, _ = _traverse(scene, cfg, SO, L, sr_depth, nee_ok, any_hit=True)
+    # CONNECT: any-hit occlusion, detached
+    occ, _ = _traverse(scene, cfg, SO.detach(), L.detach(), sr_depth.detach(), nee_ok,
+                       any_hit=True)
     unoccluded = nee_ok & (occ.prim < 0)
 
     area = scene.inst_area[light_inst]
@@ -494,19 +517,81 @@ def _wave(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState) -> PathSta
     return bounce_step(scene, cfg, s)
 
 
+# The share of the free memory that a bounce loop's autograd tape may take
+# before its waves are checkpointed.  At 512x512 (one spp, 12 waves of the
+# indoor scene, H100) the forward alone peaks at 2.17 GiB (bits lists, merge
+# scratch) and with the tape at 4.05 GiB, and the backward adds a wave's
+# gradients: a quarter leaves room for all three.
+TAPE_SHARE = 0.25
+
+
+def _free_bytes(device: torch.device) -> int:
+    """The memory a tape can still take on ``device``: the card's free
+    memory and what the caching allocator holds unused, or the host's
+    free memory."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _taped_wave(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState):
+    """Wave i and the bytes autograd saved for its backward, each storage
+    once (0 when nothing on the wave requires grad).  The storages are
+    held until the wave ends, so that one the wave frees cannot pass its
+    address on to another and hide it.  Returns (state, bytes)."""
+    storages = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        storages[st.data_ptr()] = st
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        s = _wave(scene, cfg, i, s)
+    return s, sum(st.nbytes() for st in storages.values())
+
+
+def _stepper(waves: int):
+    """The wave function of one bounce loop of at most ``waves`` waves.
+    The first wave runs as it is and its tape is measured; when ``waves``
+    such tapes would take more than TAPE_SHARE of the free memory, every
+    later wave is checkpointed (JAX's ``remat``): the backward keeps only
+    the wave's inputs and runs the wave again.  Non-reentrant: the
+    reentrant form takes no NamedTuple and loses the gradients of what
+    the wave closes over (the material table, the vertices).  Without a
+    tape (no_grad, or no input requiring grad) nothing is checkpointed."""
+    remat = None
+
+    def step(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState) -> PathState:
+        nonlocal remat
+        if remat is None:
+            s, taped = _taped_wave(scene, cfg, i, s)
+            remat = taped > 0 and taped * (waves - 1) > TAPE_SHARE * _free_bytes(s.seed.device)
+            return s
+        if remat:
+            return torch.utils.checkpoint.checkpoint(_wave, scene, cfg, i, s,
+                                                     use_reentrant=False)
+        return _wave(scene, cfg, i, s)
+
+    return step
+
+
 def _run_waves(scene: TorchScene, cfg: RenderConfig, i: int, s: PathState,
-               thresh: int | None = None):
+               thresh: int | None = None, step=None):
     """Bounce while some lane is alive, fewer than wave_limit waves have run
-    and (with ``thresh``) more than ``thresh`` lanes are alive.  One device
-    sync per wave reads the live count.  Returns (waves run so far, state,
-    the live counts summed over the waves this call ran)."""
+    and (with ``thresh``) more than ``thresh`` lanes are alive, each wave
+    through ``step`` (``_wave`` without it).  One device sync per wave
+    reads the live count.  Returns (waves run so far, state, the live
+    counts summed over the waves this call ran)."""
+    step = _wave if step is None else step
     lane_steps = 0
     while i < cfg.wave_limit:
         live = int(s.alive.sum())
         if live == 0 or (thresh is not None and live <= thresh):
             break
         lane_steps += live
-        s = _wave(scene, cfg, i, s)
+        s = step(scene, cfg, i, s)
         i += 1
     return i, s, lane_steps
 
@@ -516,11 +601,13 @@ def _bounce_loop(scene: TorchScene, cfg: RenderConfig,
     """Bounce until every path terminates or the wave cap; with
     ``max_bounces`` set, exactly that many waves and no live count read
     (JAX's fori_loop).  Paths alive at the end contribute nothing more
-    unless a FrameCarry defers them."""
+    unless a FrameCarry defers them.  Waves are checkpointed as
+    ``_stepper`` decides."""
     if cfg.max_bounces is None:
-        return _run_waves(scene, cfg, 0, state)[1]
+        return _run_waves(scene, cfg, 0, state, step=_stepper(cfg.wave_limit))[1]
+    step = _stepper(cfg.max_bounces)
     for i in range(cfg.max_bounces):
-        state = _wave(scene, cfg, i, state)
+        state = step(scene, cfg, i, state)
     return state
 
 
