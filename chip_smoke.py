@@ -267,6 +267,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      difference (h 4e-3, loss in float64) within 1e-3 relative; two steps
      under torch.use_deterministic_algorithms, bit-equal.  Timing lines
      name the card.
+  14. animate / twolevel: scene animation through HostCompiled and hybrid
+     two-level rendering, at 512x512 @ 1 spp with the bench knobs.
+     (a) A refit host and a rebuild host of the indoor scene each take
+     ANIM_STEPS update(0.3) steps, each followed by a bitsru8 frame (the
+     update's wall, its uploads' and the frame's, leaf-row launches): the
+     refit frame against the rebuild frame under tests/test_animation.py's
+     gate (under 2% of pixels off by more than 1e-3, energy within 1%),
+     the last rebuild frame bit-equal to a fresh compile of the same moved
+     scene, and one refit frame at 64x64 @ 2 spp with the leaf-row kernel
+     and with its plain version (phase 5's gates).  (b) The indoor and
+     stress32 scenes compiled with two_level=True: the twolevel frame
+     against the same scene's flattened bitsru8 frame under
+     tests/test_instanced.py:163-166's gate (under 1% of pixels off by
+     more than 1e-3, energy within 0.5%), inst_rows launches and both
+     frames' walls; the indoor hybrid host again after update(0.3,
+     rebuild=True); stress32's twolevel frame at 64x64 @ 2 spp with the
+     instanced kernel and with its plain version (phase 5b's gates).
+     (c) Pure stress32: instance 1 moved and refresh(): the frame
+     bit-equal to a fresh pure compile's.  The launches of the (a) and (b)
+     frames count into the kernels line.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -297,7 +317,9 @@ from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, lane_extr
                                   visit_bodies, visit_cost, visit_parts, walk_interleave)
 from surf_tpu_torch.scene import builtin
 from surf_tpu_torch.scene.camera import CameraParams, view_plane
-from surf_tpu_torch.scene.compile import compile_scene
+from surf_tpu_torch.core import transform as tf
+from surf_tpu_torch.scene import compile as sc
+from surf_tpu_torch.scene.compile import HostCompiled, compile_scene
 from surf_tpu_torch.wavefront import integrator as wi
 
 TPU_ENERGY = 87157.2109375  # surf_tpu on a TPU v5e, BENCH_r05.json
@@ -2745,6 +2767,151 @@ def phase_grad(dev: torch.device, w: int = W, h: int = H) -> None:
         f"gradients ({card})")
 
 
+ANIM_STEPS = 3
+ANIM_DT = 0.3
+ANIM_GATE = (0.02, 0.01)      # tests/test_animation.py:30-33: pixels off, energy
+TWOLEVEL_GATE = (0.01, 0.005)  # tests/test_instanced.py:163-166
+PARITY_SIZE = 64
+
+
+def _gate(ref, img, gate, what: str) -> str:
+    """Under gate[0] of the pixels off by more than 1e-3 and the energy
+    within gate[1]."""
+    off, rel_e, msg = _pixel_stats(ref, img)
+    if not (off < gate[0] and rel_e < gate[1]):
+        raise AssertionError(f"{what}: {msg}")
+    return msg
+
+
+def _frame(scene, cfg, cam, dev):
+    """One bench frame (total_samples 0): (image, wall s, launches of the
+    leaf-row and instanced kernels counted from 0)."""
+    leaf_rows.reset_launches()
+    inst_rows.reset_launches()
+    img, dt = _wall(lambda: _render(scene, cfg, cam, dev, 0, 1), dev)
+    counts = Counter({**_leaf_launches(),
+                      **{k: inst_rows.LAUNCHES[k] for k in inst_rows.FIRST_DESIGNS}})
+    return img, dt, +counts
+
+
+def _timed_update(host, dev, rebuild: bool):
+    """host.update(ANIM_DT, rebuild) ending in a sync: (wall s, the part
+    spent uploading)."""
+    spent = [0.0]
+
+    def timing(fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            _sync(dev)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    with mock.patch.object(host, "_put", timing(host._put)), \
+            mock.patch.object(sc, "from_render_scene", timing(sc.from_render_scene)):
+        _, dt = _wall(lambda: host.update(ANIM_DT, rebuild=rebuild), dev)
+    return dt, spent[0]
+
+
+def _need(counts, names, what, dev) -> None:
+    for name in names:
+        if counts[name] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{name} was never launched by the {what}")
+
+
+def phase_animate(dev: torch.device, w: int = W, h: int = H) -> Counter:
+    """Phase 14 (see the module docstring); returns the launches of the
+    main-path frames."""
+    card = CARD["smi"]
+    launches = Counter()
+    cam = CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+    hosts = {rebuild: HostCompiled(builtin.make_indoor_scene(), dev) for rebuild in (False, True)}
+    cfg = wi.RenderConfig.for_scene(hosts[False].scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS)
+    _render(hosts[False].scene, cfg, cam, dev, 0, 1)  # warm-up
+    for step in range(ANIM_STEPS):
+        imgs = {}
+        for rebuild, host in hosts.items():
+            dt_u, dt_up = _timed_update(host, dev, rebuild)
+            imgs[rebuild], dt_f, n = _frame(host.scene, cfg, cam, dev)
+            _check_image(imgs[rebuild], "animated", 1)
+            _need(n, PAIR, "animated frame", dev)
+            launches.update(n)
+            say(f"[14 animate] step {step} {'rebuild' if rebuild else 'refit'}: update "
+                f"{dt_u * 1e3:.1f} ms (uploads {dt_up * 1e3:.1f} ms), {w}x{h} @ 1 spp frame "
+                f"{dt_f:.3f} s, leaf-row launches {dict(n)} ({card})")
+        say(f"[14 animate] step {step} refit vs rebuild: "
+            f"{_gate(imgs[True], imgs[False], ANIM_GATE, f'refit frame, step {step}')}")
+    fresh = builtin.make_indoor_scene()
+    for _ in range(ANIM_STEPS):
+        fresh.update(ANIM_DT)
+    img = _render(compile_scene(fresh, dev), cfg, cam, dev, 0, 1)
+    if not torch.equal(img, imgs[True]):
+        raise AssertionError("the rebuilt frame differs from a fresh compile's of the scene")
+    say(f"[14 animate] the rebuilt frame is bit-equal to a fresh compile's; caps "
+        f"{hosts[True]._caps}")
+    pw = PARITY_SIZE
+    pcfg = wi.RenderConfig.for_scene(hosts[False].scene, pw, pw, 2, use_defocus=True)._replace(
+        **BENCH_KNOBS)
+    pcam = CameraParams.from_camera(builtin.make_indoor_camera(pw, pw), dev)
+    img_k = _render(hosts[False].scene, pcfg, pcam, dev, 0, 1)
+    with mock.patch.object(bits, "leaf_rows", leaf_rows.leaf_rows_plain):
+        img_p = _render(hosts[False].scene, pcfg, pcam, dev, 0, 1)
+    say(f"[14 animate] refit scene {pw}x{pw} @ 2 spp, kernel vs plain: "
+        f"{_parity(img_k, img_p, 'refit leaf-row kernel render', 0.01, 0.03)}")
+
+    hybrids = [("indoor", HostCompiled(builtin.make_indoor_scene(), dev, two_level=True),
+                builtin.make_indoor_camera),
+               ("stress32", HostCompiled(builtin.make_instanced_stress_scene(STRESS_N), dev,
+                                         two_level=True),
+                lambda a, b: builtin.make_stress_camera(a, b, STRESS_N))]
+    hybrids.append(("indoor rebuilt", hybrids[0][1], builtin.make_indoor_camera))
+    for label, host, make_cam in hybrids:
+        if label == "indoor rebuilt":
+            host.update(ANIM_DT, rebuild=True)
+        hcam = CameraParams.from_camera(make_cam(w, h), dev)
+        frames = {}
+        for algo in ("twolevel", "bitsru8"):
+            hcfg = wi.RenderConfig.for_scene(host.scene, w, h, 1, use_defocus=True)._replace(
+                **BENCH_KNOBS, algo=algo)
+            _render(host.scene, hcfg, hcam, dev, 0, 1)  # warm-up
+            frames[algo] = _frame(host.scene, hcfg, hcam, dev)
+        (img_t, dt_t, n_t), (img_f, dt_f, _) = frames["twolevel"], frames["bitsru8"]
+        _check_image(img_t, f"{label} twolevel", 1)
+        _need(n_t, inst_rows.FIRST_DESIGNS, f"{label} twolevel frame", dev)
+        launches.update(n_t)
+        say(f"[14 twolevel] {label} {w}x{h} @ 1 spp: twolevel frame {dt_t:.3f} s, inst_rows "
+            f"launches {dict(n_t)}; flattened bitsru8 frame {dt_f:.3f} s ({card}); twolevel vs "
+            f"bitsru8: {_gate(img_f, img_t, TWOLEVEL_GATE, f'{label} twolevel frame')}")
+    stress = hybrids[1][1].scene
+    scfg = wi.RenderConfig.for_scene(stress, pw, pw, 2, use_defocus=True)._replace(
+        **BENCH_KNOBS, algo="twolevel")
+    scam = CameraParams.from_camera(builtin.make_stress_camera(pw, pw, STRESS_N), dev)
+    img_k = _render(stress, scfg, scam, dev, 0, 1)
+    with mock.patch.object(instanced, "inst_rows", inst_rows.inst_rows_plain):
+        img_p = _render(stress, scfg, scam, dev, 0, 1)
+    say(f"[14 twolevel] stress32 {pw}x{pw} @ 2 spp, kernel vs plain: "
+        f"{_parity(img_k, img_p, 'twolevel instanced kernel render', 0.01, 0.03)}")
+
+    moved = tf.translate(tf.identity(), [0.6, 0.2, 0.0])
+    pure = HostCompiled(builtin.make_instanced_stress_scene(STRESS_N), dev, two_level="pure")
+    pure.host_scene.instances[1].set_transform(moved)
+    _, dt_r = _wall(pure.refresh, dev)
+    fresh = builtin.make_instanced_stress_scene(STRESS_N)
+    fresh.instances[1].set_transform(moved)
+    scam = CameraParams.from_camera(builtin.make_stress_camera(w, h, STRESS_N), dev)
+    pcfg = wi.RenderConfig.for_scene(pure.scene, w, h, 1, use_defocus=True)._replace(**BENCH_KNOBS)
+    img_r = _render(pure.scene, pcfg, scam, dev, 0, 1)
+    img_f = _render(compile_scene(fresh, dev, two_level="pure"), pcfg, scam, dev, 0, 1)
+    _check_image(img_r, "refreshed pure", 1)
+    if not torch.equal(img_r, img_f):
+        raise AssertionError("the refreshed pure frame differs from a fresh pure compile's")
+    say(f"[14 pure] stress32 instance 1 moved: refresh {dt_r * 1e3:.1f} ms ({card}), the frame "
+        f"bit-equal to a fresh pure compile's")
+    return launches
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -2861,6 +3028,8 @@ def main() -> int:
         launches.update({k: v.pop("launches") for k, v in micro.items()})
     timed("12 defer", phase_defer, dev)
     timed("13 grad", phase_grad, dev)
+    for name, n in timed("14 animate / twolevel", phase_animate, dev).items():
+        launches[name] += n
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []
     for name, rec in kernels.items():

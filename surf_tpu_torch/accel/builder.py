@@ -1,12 +1,14 @@
 """Binned-SAH BVH construction: native C++ builder + NumPy builder.
 
-The port's copy of the parts of ``surf_tpu.accel.builder`` that the render
-builds with.  Algorithm replicated from the reference (bvh.cpp):
+The port's copy of ``surf_tpu.accel.builder``.  Algorithm replicated from the reference (bvh.cpp):
 - 8 bins, 7 candidate planes per axis over the binning-key extent
   (bvh.cpp:294-377); leaf when best plane cost >= parent cost;
 - node pool of 2N with node 1 unused, children allocated in adjacent pairs
   (left = leftFirst, right = leftFirst + 1, bvh.h:36-46);
-- BLAS keys are triangle centroids ((v0+v1+v2)*0.333f).
+- BLAS keys are triangle centroids ((v0+v1+v2)*0.333f); TLAS keys replicate
+  the AABB::center() quirk that returns the half-extent 0.5*(max-min)
+  (bvh.cpp:35-38);
+- refit = leaf-up AABB recompute without topology change (bvh.cpp:268-287).
 
 The NumPy builder (``SURF_NO_NATIVE=1``, see native.py) uses a stable
 partition instead of the reference's two-pointer swap partition (same
@@ -216,3 +218,37 @@ def build_blas(v0, v1, v2, min_leaf: int = 1,
     if max_leaf is not None and bvh.count.max() > max_leaf:
         bvh = enforce_max_leaf(bvh, lo, hi, centroid, max_leaf)
     return bvh
+
+
+def build_tlas(inst_lo, inst_hi) -> BVH:
+    """TLAS over instance AABBs; bins by the AABB::center() half-extent
+    quirk 0.5*(max-min) (bvh.cpp:35-38, 842-860)."""
+    inst_lo = np.asarray(inst_lo, np.float32)
+    inst_hi = np.asarray(inst_hi, np.float32)
+    key = (np.float32(0.5) * (inst_hi - inst_lo)).astype(np.float32)
+    return build_bvh(inst_lo, inst_hi, key)
+
+
+def refit(bvh: BVH, prim_lo, prim_hi) -> BVH:
+    """Leaf-up AABB recompute over unchanged topology (bvh.cpp:268-287):
+    native, or in NumPy with ``SURF_NO_NATIVE=1``."""
+    node_lo = np.ascontiguousarray(bvh.node_lo.copy())
+    node_hi = np.ascontiguousarray(bvh.node_hi.copy())
+    if native.enabled():
+        native.native_refit(prim_lo, prim_hi, bvh.indices, node_lo, node_hi,
+                            bvh.left_first, bvh.count, bvh.nodes_used)
+        return bvh._replace(node_lo=node_lo, node_hi=node_hi)
+    prim_lo = np.asarray(prim_lo, np.float32)
+    prim_hi = np.asarray(prim_hi, np.float32)
+    for i in range(bvh.nodes_used - 1, -1, -1):
+        if i == 1:
+            continue
+        if bvh.count[i] != 0:
+            ids = bvh.indices[bvh.left_first[i]: bvh.left_first[i] + bvh.count[i]]
+            node_lo[i] = prim_lo[ids].min(axis=0)
+            node_hi[i] = prim_hi[ids].max(axis=0)
+        else:
+            l, r = bvh.left_first[i], bvh.left_first[i] + 1
+            node_lo[i] = np.minimum(node_lo[l], node_lo[r])
+            node_hi[i] = np.maximum(node_hi[l], node_hi[r])
+    return bvh._replace(node_lo=node_lo, node_hi=node_hi)

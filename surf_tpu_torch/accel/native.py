@@ -1,4 +1,5 @@
-"""ctypes binding of the native SAH builder (``native/surf_native.cpp``).
+"""ctypes binding of the native SAH builder and refit
+(``native/surf_native.cpp``).
 
 The library is compiled with g++ at first use into ``surf_tpu_torch/_build/``
 (listed in ``.gitignore``), under a name that carries a hash of the source
@@ -65,6 +66,9 @@ def library() -> ctypes.CDLL:
             lib.surf_bvh_build.argtypes = [f32p, f32p, f32p, ctypes.c_uint32,
                                            u32p, f32p, f32p, u32p, u32p,
                                            ctypes.c_uint32]
+            lib.surf_bvh_refit.restype = None
+            lib.surf_bvh_refit.argtypes = [f32p, f32p, u32p, f32p, f32p,
+                                           u32p, u32p, ctypes.c_uint32]
             _LIB = lib
         return _LIB
 
@@ -97,3 +101,19 @@ def native_build(prim_lo, prim_hi, key, min_leaf: int = 1):
         min_leaf,
     )
     return indices, node_lo, node_hi, left_first, count, int(used)
+
+
+def native_refit(prim_lo, prim_hi, indices, node_lo, node_hi, left_first, count,
+                 nodes_used: int) -> None:
+    """In-place leaf-up refit of node_lo / node_hi (C-contiguous [2n, 3]
+    float32)."""
+    lib = library()
+    prim_lo = np.ascontiguousarray(prim_lo, np.float32)
+    prim_hi = np.ascontiguousarray(prim_hi, np.float32)
+    if not (node_lo.flags.c_contiguous and node_hi.flags.c_contiguous):
+        raise ValueError("node_lo and node_hi must be C-contiguous")
+    lib.surf_bvh_refit(
+        _fp(prim_lo), _fp(prim_hi), _up(np.ascontiguousarray(indices, np.uint32)),
+        _fp(node_lo), _fp(node_hi), _up(np.ascontiguousarray(left_first, np.uint32)),
+        _up(np.ascontiguousarray(count, np.uint32)), nodes_used,
+    )

@@ -1,7 +1,7 @@
 """The binary BVH as a skip-link node list, and the 16-lane record tables
 the binary packet walk reads (the port's copies of ``build_skiplinks``,
-``pack_records_np`` and ``pack_trace_tables`` from
-``surf_tpu/accel/traverse.py:92-183``).
+``pack_records_np``, ``pack_trace_tables``, ``skiplink_boxes`` and
+``bvh_max_depth`` from ``surf_tpu/accel/traverse.py:92-205``).
 
 Nodes are in DFS preorder, left child first; ``meta[:, 0]`` is a leaf's
 first triangle slot, ``meta[:, 1]`` its triangle count (0 for an internal
@@ -47,9 +47,17 @@ def pack_trace_tables(tri_v0, tri_v1, tri_v2, boxes, meta):
     return nodes_packed, tris_packed
 
 
-def build_skiplinks(bvh: BVH) -> tuple[np.ndarray, np.ndarray]:
+def skiplink_boxes(bvh: BVH, order: np.ndarray) -> np.ndarray:
+    """The node boxes of a refit tree re-gathered in a cached DFS preorder
+    (a refit moves box values only; the skip links stay)."""
+    return np.concatenate([bvh.node_lo[order], bvh.node_hi[order]],
+                          axis=1).astype(np.float32)
+
+
+def build_skiplinks(bvh: BVH, return_order: bool = False) -> tuple[np.ndarray, ...]:
     """DFS-preorder node arrays with skip links: (boxes [D, 6] f32, meta
-    [D, 3] int32) over the D nodes reachable from the root."""
+    [D, 3] int32) over the D nodes reachable from the root, and with
+    ``return_order`` the node ids in preorder, for ``skiplink_boxes``."""
     walk = [0]
     order = []
     while walk:
@@ -78,4 +86,20 @@ def build_skiplinks(bvh: BVH) -> tuple[np.ndarray, np.ndarray]:
         meta[i, 0] = bvh.left_first[node] if leaf else 0
         meta[i, 1] = bvh.count[node] if leaf else 0
         meta[i, 2] = i + size[node]
+    if return_order:
+        return boxes, meta, np.asarray(order, np.int64)
     return boxes, meta
+
+
+def bvh_max_depth(bvh: BVH) -> int:
+    """The binary tree's depth (the root is depth 1)."""
+    depth = 0
+    stack = [(0, 1)]
+    while stack:
+        node, dd = stack.pop()
+        depth = max(depth, dd)
+        if bvh.count[node] == 0:
+            left = int(bvh.left_first[node])
+            stack.append((left, dd + 1))
+            stack.append((left + 1, dd + 1))
+    return depth

@@ -1,7 +1,8 @@
 """The layouts the traversals read: the port's copies of
 ``surf_tpu.accel.wide.build_leaf_table`` (the dense leaf table of
-``bitsru8``) and of ``build_wide_stream`` / ``pad_wide_stream`` (the 8-wide
-DFS stream of the ``skip`` and ``stack`` walks).
+``bitsru8``) and of ``build_wide_stream`` / ``pad_wide_stream`` /
+``refit_wide_stream`` (the 8-wide DFS stream of the ``skip`` and ``stack``
+walks, and its topology-preserving refit after animation).
 
 Leaf table.  Leaf-ordered triangles are packed 8 to a 128-lane row, each in a 16-lane
 record: v0 at lanes 0-2, e1 = v1 - v0 at 3-5, e2 = v2 - v0 at 6-8, and the
@@ -23,7 +24,9 @@ flattened into one DFS-preorder table of 128-lane rows of two kinds:
 
 Lane 9 (int32) is 1 for leaf rows and 0 for node rows, lane 10 (int32) the
 skip link, the stream position after the row's subtree.  Per node the
-order is [node row][its leaf-item rows][child subtrees...].
+order is [node row][its leaf-item rows][child subtrees...].  Each node
+slot keeps its provenance (a binary node, or a leaf-order triangle range),
+so a refit rewrites the slot boxes without rebuilding the stream.
 """
 
 from __future__ import annotations
@@ -170,17 +173,24 @@ def build_leaf_table(tv0, tv1, tv2) -> LeafTable:
 
 
 class WideStream(NamedTuple):
-    """The 8-wide DFS stream (host arrays)."""
+    """The 8-wide DFS stream (host arrays) and each node slot's provenance
+    for ``refit_wide_stream``: kind 0 empty, 1 a binary node (a = its id),
+    2 a leaf-order triangle range (a = first slot, b = count)."""
 
-    stream: np.ndarray    # [E, 128] f32 node and leaf rows
-    rec_slot: np.ndarray  # [E * 8] int32: record -> leaf-order tri slot (-1)
+    stream: np.ndarray     # [E, 128] f32 node and leaf rows
+    rec_slot: np.ndarray   # [E * 8] int32: record -> leaf-order tri slot (-1)
+    n_entries: int         # rows before padding
+    slot_kind: np.ndarray  # [E, 8] int8
+    slot_a: np.ndarray     # [E, 8] int32
+    slot_b: np.ndarray     # [E, 8] int32
 
 
 def build_wide_stream(bvh: BVH, tri_v0, tri_v1, tri_v2) -> WideStream:
     """Collapse a binary BVH over *leaf-ordered* triangles (vertices already
     permuted by ``bvh.indices``) into the wide DFS stream
-    (``surf_tpu/accel/wide.py:105-310``, without the refit provenance and
-    the own-box / ancestor arrays, which no ported walk reads)."""
+    (``surf_tpu/accel/wide.py:105-310``, without the own-box / ancestor
+    arrays and the depth, which no ported walk reads: ``stream_depth``
+    reads the depth from the stream)."""
     tv0 = np.asarray(tri_v0, np.float32)
     tv1 = np.asarray(tri_v1, np.float32)
     tv2 = np.asarray(tri_v2, np.float32)
@@ -258,6 +268,7 @@ def build_wide_stream(bvh: BVH, tri_v0, tri_v1, tri_v2) -> WideStream:
 
     rows: list[np.ndarray] = []
     recs: list[np.ndarray] = []
+    provenance: list[tuple[int, int, int, int, int]] = []  # row, slot, kind, a, b
 
     def emit_leaf_row(tri_slots) -> int:
         """One leaf item -> one row (<= 8 tris); returns its position.
@@ -283,11 +294,13 @@ def build_wide_stream(bvh: BVH, tri_v0, tri_v1, tri_v2) -> WideStream:
                 interior.append((k, make_children([("n", l), ("n", l + 1)])))
                 child_pos.append(-1)  # filled after recursion
                 child_leaf.append(0)
+                provenance.append((pos, k, 1, it[1], 0))
             else:
                 first, cnt = (int(left_first[it[1]]), int(count[it[1]])) \
                     if it[0] == "n" else (it[1], it[2])
                 child_pos.append(emit_leaf_row(range(first, first + cnt)))
                 child_leaf.append(1)
+                provenance.append((pos, k, 2, first, cnt))
         for k, child_items in interior:
             child_pos[k] = emit_node(child_items)
 
@@ -322,23 +335,66 @@ def build_wide_stream(bvh: BVH, tri_v0, tri_v1, tri_v2) -> WideStream:
     stream = np.stack(rows).astype(np.float32)
     rec_slot = np.concatenate(recs).astype(np.int32)
     _fill_leaf_rows(stream, rec_slot, tv0, tv1, tv2)
-    return WideStream(stream, rec_slot)
+    slot = np.zeros((3, len(rows), WIDTH), np.int32)
+    for r, k, *kab in provenance:
+        slot[:, r, k] = kab
+    return WideStream(stream, rec_slot, n_entries, slot[0].astype(np.int8), slot[1], slot[2])
 
 
 def pad_wide_stream(ws: WideStream, target_rows: int) -> WideStream:
     """Pad a built stream to ``target_rows`` rows with inert node rows
     (``surf_tpu/accel/wide.py:479-517``): every slot box is NaN and the
     skip link jumps to ``target_rows``, so a walk that reaches the pad pays
-    one visit and exits."""
+    one visit and exits.  Their slots are empty (kind 0)."""
     e0 = ws.stream.shape[0]
     if target_rows <= e0:
         return ws
     add = target_rows - e0
     rows = np.full((add, LANE), np.nan, np.float32)
     rows[:, IS_LEAF_LANE:SKIP_LANE + 1] = np.array([0, target_rows], np.int32).view(np.float32)
+    slots = {name: np.concatenate([getattr(ws, name), np.zeros((add, WIDTH), getattr(ws, name).dtype)])
+             for name in ("slot_kind", "slot_a", "slot_b")}
     return ws._replace(
         stream=np.concatenate([ws.stream, rows]),
-        rec_slot=np.concatenate([ws.rec_slot, np.full(add * LEAF_TRIS, -1, np.int32)]))
+        rec_slot=np.concatenate([ws.rec_slot, np.full(add * LEAF_TRIS, -1, np.int32)]),
+        **slots)
+
+
+def refit_wide_stream(ws: WideStream, bvh: BVH, tri_v0, tri_v1, tri_v2) -> WideStream:
+    """Topology-preserving refit of a stream after vertex motion
+    (``surf_tpu/accel/wide.py:520-563``, without the own boxes): the leaf
+    rows' triangles and the node rows' slot boxes are rewritten from the
+    refit ``bvh`` (same topology as at build) and the leaf-ordered
+    vertices."""
+    tv0 = np.asarray(tri_v0, np.float32)
+    tv1 = np.asarray(tri_v1, np.float32)
+    tv2 = np.asarray(tri_v2, np.float32)
+    stream = ws.stream.copy()
+    _fill_leaf_rows(stream, ws.rec_slot, tv0, tv1, tv2)
+
+    tlo, thi = triangle_bounds(tv0, tv1, tv2)
+    rn, kn = np.nonzero(ws.slot_kind == 1)
+    if len(rn):
+        ids = ws.slot_a[rn, kn]
+        for c in range(3):
+            stream[rn, REC * kn + 0 + c] = bvh.node_lo[ids, c]
+            stream[rn, REC * kn + 3 + c] = bvh.node_hi[ids, c]
+    rl, kl = np.nonzero(ws.slot_kind == 2)
+    if len(rl):
+        first = ws.slot_a[rl, kl]
+        cnt = ws.slot_b[rl, kl]
+        # ranges are contiguous and at most LEAF_TRIS long: an unrolled
+        # min / max in JAX's order
+        lo = tlo[first].copy()
+        hi = thi[first].copy()
+        for j in range(1, int(cnt.max())):
+            m = cnt > j
+            lo[m] = np.minimum(lo[m], tlo[first[m] + j])
+            hi[m] = np.maximum(hi[m], thi[first[m] + j])
+        for c in range(3):
+            stream[rl, REC * kl + 0 + c] = lo[:, c]
+            stream[rl, REC * kl + 3 + c] = hi[:, c]
+    return ws._replace(stream=stream)
 
 
 def stream_depth(stream: np.ndarray) -> int:

@@ -4,7 +4,9 @@ Mirrors the reference's renderer interface (IRenderer: clearAccumulator /
 render(deltaTime) / config() / frameInfo(), renderer.h:87-97).
 ``WavefrontRenderer`` is the analog of WaveFrontRenderer
 (renderer.h:207-436): a progressive renderer over a compiled scene on one
-device, with cross-frame deferral on request."""
+device, with cross-frame deferral on request.  Given a ``HostCompiled``, as
+JAX's takes one, it renders the host's current scene each frame, so an
+``update`` between frames is seen."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from ..scene.camera import Camera, CameraParams
-from ..scene.compile import PureScene, TorchScene
+from ..scene.compile import HostCompiled, HybridScene, PureScene, TorchScene
 from ..wavefront.accumulator import Accumulator
 from ..wavefront.integrator import (
     RenderConfig,
@@ -42,17 +44,20 @@ class FrameInstrumentationData:
 
 
 class WavefrontRenderer:
-    """Progressive wavefront renderer over a scene compiled on ``device``.
-    Each frame is seeded from the accumulated sample count.  With
+    """Progressive wavefront renderer over a scene compiled on ``device``,
+    or over a ``HostCompiled``'s current scene (read each frame).  Each
+    frame is seeded from the accumulated sample count.  With
     ``defer`` the paths alive at the wave cap persist in a FrameCarry and
     resume next frame (renderer.cpp:1101-1104), so an aggressive wave cap
     costs no estimator bias."""
 
-    def __init__(self, scene: TorchScene | PureScene, camera: Camera,
+    def __init__(self, scene: TorchScene | HybridScene | PureScene | HostCompiled,
+                 camera: Camera,
                  config: RendererConfigHost, device: torch.device,
                  compact: bool = False, defer: bool = False,
                  wave_limit: int | None = None, algo: str | None = None):
-        self._scene = scene
+        self._source = scene
+        scene = self._current_scene()
         self._camera = camera
         self._config = config
         self._device = device
@@ -73,6 +78,10 @@ class WavefrontRenderer:
         self._defer = defer
         self._carry = empty_frame_carry(self._rcfg, device) if defer else None
 
+    def _current_scene(self) -> TorchScene | HybridScene | PureScene:
+        src = self._source
+        return src.scene if isinstance(src, HostCompiled) else src
+
     # -- IRenderer surface (renderer.h:87-97) ------------------------------
     def clear_accumulator(self) -> None:
         self._acc.clear()
@@ -87,12 +96,13 @@ class WavefrontRenderer:
         """One frame of samples_per_frame samples; returns the resolved
         (accumulated / totalSamples) image."""
         total = self._acc.total_samples
+        scene = self._current_scene()
         if self._defer:
             seed0 = initial_seeds(self._rcfg, total, self._device)
             radiance, _, self._carry = render_frame_carry(
-                self._scene, self._rcfg, self._cam_params, seed0, self._carry)
+                scene, self._rcfg, self._cam_params, seed0, self._carry)
         else:
-            radiance = render_frame(self._scene, self._rcfg, self._cam_params,
+            radiance = render_frame(scene, self._rcfg, self._cam_params,
                                     total, self._device)
         self._acc.add_frame(radiance.cpu().numpy(), self._config.samples_per_frame)
         self._frame_info.energy = self._acc.energy()

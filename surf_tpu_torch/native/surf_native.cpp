@@ -1,5 +1,5 @@
-// Binned-SAH BVH build for surf_tpu_torch (a copy of surf_tpu's native
-// builder, build entry point only).
+// Binned-SAH BVH build and refit for surf_tpu_torch (a copy of surf_tpu's
+// native builder).
 //
 // Host-side BVH construction as in the reference (bvh.cpp:255-465 BLAS):
 // the build is sequential, recursive host work, so it stays native C++;
@@ -12,7 +12,7 @@
 // Node layout (bvh.h:36-46): leftFirst/count + AABB; children adjacent
 // (left = leftFirst, right = leftFirst + 1); node 1 unused; pool size 2N.
 //
-// Build: exposed with C linkage for ctypes.  No dependencies.
+// Build and refit: exposed with C linkage for ctypes.  No dependencies.
 
 #include <cstdint>
 #include <cstring>
@@ -229,6 +229,34 @@ uint32_t surf_bvh_build(const float* prim_lo, const float* prim_hi,
   b.update_node_bounds(0);
   b.subdivide_all();
   return b.nodes_used;
+}
+
+// refit (bvh.cpp:268-287): leaf-up AABB recompute over existing topology.
+void surf_bvh_refit(const float* prim_lo, const float* prim_hi,
+                    const uint32_t* indices, float* node_lo, float* node_hi,
+                    const uint32_t* left_first, const uint32_t* count,
+                    uint32_t nodes_used) {
+  for (int64_t i = static_cast<int64_t>(nodes_used) - 1; i >= 0; i--) {
+    if (i == 1) continue;
+    if (count[i] != 0) {  // leaf
+      Box b;
+      for (uint32_t k = 0; k < count[i]; k++) {
+        uint32_t p = indices[left_first[i] + k];
+        b.grow(Box{{prim_lo[3 * p], prim_lo[3 * p + 1], prim_lo[3 * p + 2]},
+                   {prim_hi[3 * p], prim_hi[3 * p + 1], prim_hi[3 * p + 2]}});
+      }
+      node_lo[3 * i] = b.lo.x; node_lo[3 * i + 1] = b.lo.y; node_lo[3 * i + 2] = b.lo.z;
+      node_hi[3 * i] = b.hi.x; node_hi[3 * i + 1] = b.hi.y; node_hi[3 * i + 2] = b.hi.z;
+      continue;
+    }
+    uint32_t l = left_first[i], r = left_first[i] + 1;
+    for (int a = 0; a < 3; a++) {
+      node_lo[3 * i + a] =
+          node_lo[3 * l + a] < node_lo[3 * r + a] ? node_lo[3 * l + a] : node_lo[3 * r + a];
+      node_hi[3 * i + a] =
+          node_hi[3 * l + a] > node_hi[3 * r + a] ? node_hi[3 * l + a] : node_hi[3 * r + a];
+    }
+  }
 }
 
 }  // extern "C"

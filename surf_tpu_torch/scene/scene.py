@@ -1,9 +1,10 @@
-"""Scene graph: background + instances + light list (the NumPy description
-layer of ``surf_tpu.scene.scene``, carried over without the TLAS and the
-animation, which the ported render paths do not read).
+"""Scene graph: background + instances + lights + TLAS, with animation (the
+port's copy of ``surf_tpu.scene.scene``, NumPy only).
 
 Emissive instances are collected into a light list at construction
-(scene.cpp:23-33); the background is solid or a vertical gradient.
+(scene.cpp:23-33); the background is solid or a vertical gradient;
+``update(dt)`` rotates instance 3 about WORLD_UP and refits the TLAS
+(scene.cpp:53-59).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..accel.builder import build_tlas, refit
+from ..core import transform as tf
 from .instance import Instance
 
 BG_SOLID = 0
@@ -38,3 +41,20 @@ class Scene:
         self.light_indices = [
             i for i, inst in enumerate(self.instances) if inst.material.is_light()
         ]
+        self.tlas = build_tlas(*self._instance_bounds())
+        self.version = 0  # bumped on update
+
+    def _instance_bounds(self):
+        lo = np.stack([inst.bounds_min for inst in self.instances])
+        hi = np.stack([inst.bounds_max for inst in self.instances])
+        return lo, hi
+
+    def update(self, delta_time: float) -> None:
+        """Animate instance 3 (a rotation of delta_time rad about WORLD_UP,
+        scene.cpp:53-59) and refit the TLAS over the instances' bounds.
+        Scenes with fewer instances animate their last instance instead."""
+        inst = self.instances[min(3, len(self.instances) - 1)]
+        inst.set_transform(
+            tf.rotate(inst.transform, 1.0 * float(delta_time), [0.0, 1.0, 0.0]))
+        self.tlas = refit(self.tlas, *self._instance_bounds())
+        self.version += 1

@@ -3,10 +3,12 @@
 ``TorchScene`` is traversed by a ``bits*`` algo (``"bitsru8"`` by default),
 a stream walk (``"skip"``, ``"stack"`` or a TPU schedule of the skip walk:
 ``"skip2"``, ``"ilvN"``, ``"specN"``, ``"specbN"``), or with
-``use_wide=False`` by the binary packet walk; a pure
-two-level ``PureScene`` by ``algo="twolevelp"``, whose shading re-derives
-world geometry per lane from the shared object-space meshes and the hit
-instance's forward transform.
+``use_wide=False`` by the binary packet walk; a hybrid two-level
+``HybridScene`` also by ``algo="twolevel"``, whose instanced hit maps back
+to the flattened leaf slot; a pure two-level ``PureScene`` by
+``algo="twolevelp"``, whose shading re-derives world geometry per lane
+from the shared object-space meshes and the hit instance's forward
+transform.
 
 Every pixel owns one path per sample in a dense SoA lane state; each wave
 runs extend (closest-hit traversal), shade (lobe select, Schlick
@@ -64,13 +66,13 @@ from ..core.vecmath import (
     reflect,
 )
 from ..scene.camera import CameraParams, ViewPlane, view_plane
-from ..scene.compile import PureScene, TorchScene
+from ..scene.compile import HybridScene, PureScene, TorchScene
 
 # The ported algos besides the bits* family, whose every string that
 # JAX's traverse_wide accepts renders (accel.bits.parse_algo): the stream
 # walks (accel.stream_walk.ALGOS: skip, stack, skip2, ilv1-4, spec1-8,
-# specb1-8) and twolevelp.
-ALGOS = (*STREAM_ALGOS, "twolevelp")
+# specb1-8), twolevel and twolevelp.
+ALGOS = (*STREAM_ALGOS, "twolevel", "twolevelp")
 # bench.py's render knobs (wave cap, packet size, compaction, width ladder,
 # lane order), applied with RenderConfig._replace(**BENCH_KNOBS).
 BENCH_KNOBS = dict(wave_limit=32, block_rays=2048, compact=True,
@@ -92,7 +94,7 @@ def is_ported(algo: str) -> bool:
 
 def algo_of(scene: TorchScene | PureScene) -> str:
     """The traversal a scene is rendered with: "twolevelp" for a PureScene,
-    "bitsru8" for a flattened TorchScene."""
+    "bitsru8" for a flattened TorchScene (or a HybridScene, as in JAX)."""
     return "twolevelp" if isinstance(scene, PureScene) else "bitsru8"
 
 
@@ -100,7 +102,8 @@ class RenderConfig(NamedTuple):
     """Render configuration: the fields of ``surf_tpu``'s RenderConfig that
     the forward path reads, with the same names and defaults.  ``algo``
     names the traversal, with JAX's precedence: "twolevelp" (the only one
-    of a PureScene) goes to the instanced walk; else ``use_wide`` picks a
+    of a PureScene) and "twolevel" (a HybridScene's instanced tables) go
+    to the instanced walk; else ``use_wide`` picks a
     ``bits*`` algo or a stream walk over the 8-wide layouts, and
     ``use_wide=False`` the binary packet walk.  ``cap_rows`` and
     ``pair_groups`` size the bits lists (0: BITS_CAP_ROWS, PAIR_GROUPS).  ``for_scene`` picks
@@ -125,7 +128,7 @@ class RenderConfig(NamedTuple):
     ladder_shrink: int = 4       # width divisor per rung
     pixel_order: str = "native"  # lane -> pixel map: "native" or "morton"
     algo: str = "bitsru8"        # traversal: a bits* string or one of ALGOS
-    use_wide: bool = True        # False: the binary walk (unless twolevelp)
+    use_wide: bool = True        # False: the binary walk (unless twolevel[p])
     cap_rows: int = 0            # bits list capacity (0 = BITS_CAP_ROWS)
     pair_groups: int = 0         # bitsp per-ray groups (0 = PAIR_GROUPS)
     max_bounces: int | None = None  # None: wave_limit-capped while loop
@@ -209,9 +212,18 @@ def _traverse(scene: TorchScene | PureScene, cfg: RenderConfig, origin,
     (``surf_tpu.wavefront.integrator._dispatch_traverse``).  Returns (Hit,
     inst): for a PureScene the hit's prim is the object-space triangle
     (``inst_obj_base[inst] + inst_slot_perm[base + slot]``) and ``inst``
-    the hit instance (-1 on a miss); for a TorchScene prim is the leaf
-    slot and ``inst`` is None."""
+    the hit instance (-1 on a miss); for a flattened scene prim is the
+    leaf slot and ``inst`` is None, also with "twolevel", whose
+    (instance, mesh-local slot) winner maps back to the leaf slot through
+    ``inst_prim_base`` and ``inst_prim_map`` (integrator.py:291-296)."""
     args = (origin, direction, t_max, active)
+    if cfg.algo == "twolevel":
+        h = traverse_instanced(scene.inst, *args, any_hit=any_hit,
+                               block_rays=cfg.block_rays)
+        found = h.prim >= 0
+        base = scene.inst_prim_base[h.inst.clamp(min=0)]
+        slot = scene.inst_prim_map[base + h.prim.clamp(min=0)]
+        return Hit(prim=torch.where(found, slot, -1), t=h.t, u=h.u, v=h.v), None
     if not isinstance(scene, PureScene):
         if not cfg.use_wide:
             return traverse_binary(scene.binary, *args, any_hit=any_hit), None
@@ -706,11 +718,15 @@ def lane_pixel_perm(cfg: RenderConfig, device: torch.device):
     return torch.as_tensor(np.argsort(code, kind="stable"), device=device)
 
 
-def _check_algo(scene: TorchScene | PureScene, cfg: RenderConfig) -> None:
-    """Raises unless cfg.algo is ported and renders this kind of scene."""
+def _check_algo(scene: TorchScene | HybridScene | PureScene, cfg: RenderConfig) -> None:
+    """Raises unless cfg.algo is ported and renders this kind of scene
+    ("twolevel" needs a HybridScene's instanced tables, as JAX asserts)."""
     pure = isinstance(scene, PureScene)
-    if not is_ported(cfg.algo) or pure != (cfg.algo == "twolevelp"):
+    if (not is_ported(cfg.algo) or pure != (cfg.algo == "twolevelp")
+            or (cfg.algo == "twolevel" and not isinstance(scene, HybridScene))):
         fits = "twolevelp" if pure else "bits*, a stream walk or use_wide=False"
+        if isinstance(scene, HybridScene):
+            fits += ", or twolevel"
         raise ValueError(f"algo={cfg.algo!r} does not render a {type(scene).__name__} "
                          f"(it renders with {fits}; the ported algos are {ALGOS} and "
                          f"every bits* string of traverse_wide)")

@@ -148,11 +148,16 @@ def test_twolevelp_matches_flattened(port_box_twolevelp):
 
 
 def test_algo_checks():
+    """The combinations that stay invalid: twolevel on a scene without
+    instanced tables (JAX asserts, integrator.py:273-274), twolevelp on a
+    flattened scene (hybrid or not), and an unknown two_level."""
     ts = compile_scene(builtin.make_diffuse_box_scene(), CPU)
+    hs = compile_scene(builtin.make_diffuse_box_scene(), CPU, two_level=True)
     cam = CameraParams.from_camera(builtin.make_indoor_camera(8, 8), CPU)
     cfg = RenderConfig.for_scene(ts, 8, 8, 1, use_defocus=False)
-    for bad in (cfg._replace(algo="twolevel"), cfg._replace(algo="twolevelp")):
+    for scene, bad in ((ts, cfg._replace(algo="twolevel")), (ts, cfg._replace(algo="twolevelp")),
+                       (hs, cfg._replace(algo="twolevelp"))):
         with pytest.raises(ValueError):
-            render_frame_seeded(ts, bad, cam, initial_seeds(cfg, 0, CPU))
+            render_frame_seeded(scene, bad, cam, initial_seeds(cfg, 0, CPU))
     with pytest.raises(ValueError):
-        compile_scene(builtin.make_diffuse_box_scene(), CPU, two_level=True)
+        compile_scene(builtin.make_diffuse_box_scene(), CPU, two_level="hybrid")
