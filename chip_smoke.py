@@ -287,6 +287,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
      (c) Pure stress32: instance 1 moved and refresh(): the frame
      bit-equal to a fresh pure compile's.  The launches of the (a) and (b)
      frames count into the kernels line.
+  15. dist / cli: data-parallel distribution (surf_tpu_torch.dist) and
+     the CLI on the indoor scene at 512x512 @ 1 spp, the bench knobs with
+     native lanes.  (a) A world of one in this process
+     (init_multihost: NCCL on the card, gloo on the CPU; destroyed at the
+     end of (a)): render_frame_sharded bit-identical to render_frame, its
+     leaf-row launches equal to render_frame's; a ShardedSession's two
+     frames and, after HostCompiled.update and update_scene, a third,
+     each bit-identical to render_frame; grad_step_sharded at
+     max_bounces=12 against grad_image_loss at tests/test_sharding.py's
+     bounds (loss rtol 1e-5, leaves rtol 1e-4 / atol 1e-6);
+     scaling_sweep((1,)); the CLI in process (--scene indoor --spp 1
+     --frames 2 --animate) with --shard and without, both .npy images
+     equal.  (b) DIST_RANKS ranks spawned on the same card over gloo
+     (dist.launch.run_local_ranks): each renders the sharded frame and
+     takes the sharded gradient step on its half of the lanes (each after
+     a warm-up call), held to
+     (a)'s single-device frame (atol 1e-5, exact equality printed) and
+     gradients (the same bounds); every sharded call launches both
+     leaf-row entry points.  The launches of the sharded calls, (b)'s
+     ranks' included, count into the kernels line.
 Each phase prints its seconds.  Then a JSON line of per-kernel results
 and, last, the device summary.  Imports no JAX.
 """
@@ -298,19 +318,25 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 
 from surf_tpu_torch.accel import (_build, bits, bvh_walk, inst_rows, instanced,
                                   leaf_rows, stream, stream_walk)
+from surf_tpu_torch.app import cli
 from surf_tpu_torch.app.renderer import RendererConfigHost, WavefrontRenderer
 from surf_tpu_torch.diff import (DiffTargets, finite_difference, grad_image_loss, image_loss,
                                  render_image_diff, tree_flatten)
+from surf_tpu_torch.dist import (ShardedSession, grad_step_sharded, init_multihost, make_mesh,
+                                 render_frame_sharded, scaling_sweep)
+from surf_tpu_torch.dist.launch import run_local_ranks
 from surf_tpu_torch.micro import (_mxu, _visit, cond_visit, dep_chain, lane_extract,
                                   lane_splat, leaf_groups, leaf_visit, mask_reduce, mxu_parts,
                                   mxu_pltd, mxu_tiles, quant_visit, spec_visit, stack_visit,
@@ -2912,6 +2938,177 @@ def phase_animate(dev: torch.device, w: int = W, h: int = H) -> Counter:
     return launches
 
 
+DIST_RANKS = 2        # phase 15b: ranks sharing the card over gloo
+DIST_DEADLINE = 300   # seconds for 15b's spawned ranks, start-up included
+DIST_ATOL = 1e-5      # tests/test_sharding.py:44
+DIST_GRAD = (1e-5, 1e-4, 1e-6)  # tests/test_sharding.py:60-62: loss rtol, leaf rtol, atol
+CLI_FRAMES = 2
+
+
+def _dist_setup(dev, w, h):
+    """Phase 15's indoor scene, config (1 spp, the bench knobs, native
+    lanes: the sharded path renders native lanes) and camera."""
+    scene = compile_scene(builtin.make_indoor_scene(), dev)
+    cfg = wi.RenderConfig.for_scene(scene, w, h, 1, use_defocus=True)._replace(
+        **BENCH_KNOBS)._replace(pixel_order="native")
+    return scene, cfg, CameraParams.from_camera(builtin.make_indoor_camera(w, h), dev)
+
+
+def _launched(fn, dev):
+    """(fn(), wall s, leaf-row launches counted from 0 around it)."""
+    leaf_rows.reset_launches()
+    out, dt = _wall(fn, dev)
+    return out, dt, _leaf_launches()
+
+
+def _image_gate(ref, img, what: str) -> str:
+    """tests/test_sharding.py:44's gate, exact equality reported."""
+    err = float((ref - img).abs().max())
+    if not err <= DIST_ATOL:
+        raise AssertionError(f"{what}: max |d| {err} against the single-device frame")
+    return f"max |d| {err}, bit-identical {bool(torch.equal(ref, img))}"
+
+
+def _grad_gate(loss, grads, ref_loss, ref_grads, what: str) -> str:
+    """tests/test_sharding.py:60-62's bounds on the loss and every leaf."""
+    rtol_loss, rtol, atol = DIST_GRAD
+    if not np.isclose(float(loss), float(ref_loss), rtol=rtol_loss):
+        raise AssertionError(f"{what}: loss {float(loss)!r} against {float(ref_loss)!r}")
+    worst = 0.0
+    for k, (g, r) in enumerate(zip(grads, tree_flatten(ref_grads)[0])):
+        g = g.to(r.device)
+        if not torch.allclose(g, r, rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: gradient leaf {k} off by "
+                                 f"{float((g - r).abs().max())}")
+        worst = max(worst, float(((g - r).abs() / (atol + rtol * r.abs())).max()))
+    return (f"loss {float(loss)!r} (single {float(ref_loss)!r}), every leaf within "
+            f"{worst:.3f} of its bound")
+
+
+def _dist_rank(device: str, w: int, h: int) -> dict:
+    """Phase 15b's rank body (a spawned process in a gloo group): on this
+    rank's half of the lanes, the sharded frame and the sharded gradient
+    step, each after a warm-up call and with its wall and leaf-row
+    launches."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    scene, cfg, cam = _dist_setup(dev, w, h)
+    mesh = make_mesh(dev)
+    render_frame_sharded(scene, cfg, cam, 0, mesh)  # warm-up
+    img, dt, n = _launched(lambda: render_frame_sharded(scene, cfg, cam, 0, mesh), dev)
+    gcfg = cfg._replace(max_bounces=GRAD_BOUNCES)
+    targets = DiffTargets.from_scene(scene, cam)
+    grad_step_sharded(scene, gcfg, targets, 0, mesh)  # warm-up
+    (loss, grads), dt_g, n_g = _launched(
+        lambda: grad_step_sharded(scene, gcfg, targets, 0, mesh), dev)
+    return {"image": img.cpu(), "frame_s": dt, "launches": n, "lanes": mesh.lanes(w * h),
+            "backend": dist.get_backend(), "loss": loss.cpu(), "grad_s": dt_g,
+            "grads": [g.cpu() for g in tree_flatten(grads)[0]], "grad_launches": n_g}
+
+
+def phase_dist(dev: torch.device, w: int = W, h: int = H) -> Counter:
+    """Phase 15 (see the module docstring); returns the leaf-row launches
+    of the sharded entry points (in this process and in 15b's ranks)."""
+    card = CARD["smi"]
+    launches = Counter()
+    if init_multihost(device=dev.type) != dev:
+        raise AssertionError(f"init_multihost did not give this rank {dev}")
+    try:
+        mesh = make_mesh(dev)
+        scene, cfg, cam = _dist_setup(dev, w, h)
+        ref, dt_ref, n_ref = _launched(lambda: wi.render_frame(scene, cfg, cam, 0, dev), dev)
+        img, dt, n = _launched(lambda: render_frame_sharded(scene, cfg, cam, 0, mesh), dev)
+        _need(n, PAIR, "sharded frame", dev)
+        if not torch.equal(img, ref) or n != n_ref:
+            raise AssertionError(f"the sharded frame ({n}) differs from render_frame's "
+                                 f"({n_ref}): {_image_gate(ref, img, 'sharded frame')}")
+        launches.update(n)
+        say(f"[15 dist] {dist.get_backend()} world of {dist.get_world_size()}, mesh "
+            f"{mesh.shape}: {w}x{h} @ 1 spp sharded frame {dt:.3f} s, leaf-row launches "
+            f"{dict(n)}, bit-identical to render_frame ({dt_ref:.3f} s) ({card})")
+
+        host = HostCompiled(builtin.make_indoor_scene(), dev)
+        sess = ShardedSession(host.scene, cfg, mesh)
+        frames = []
+        for k, total in enumerate((0, 1, 0)):
+            if k == 2:
+                host.update(ANIM_DT)
+                sess.update_scene(host.scene)
+            img_s, dt_s, n_s = _launched(lambda: sess.render(cam, total), dev)
+            _need(n_s, PAIR, "session frame", dev)
+            if not torch.equal(img_s, wi.render_frame(host.scene, cfg, cam, total, dev)):
+                raise AssertionError(f"session frame {k} differs from render_frame's")
+            launches.update(n_s)
+            frames.append(img_s)
+            say(f"[15 dist] ShardedSession frame {k} (total_samples {total}"
+                f"{', after update' if k == 2 else ''}): {dt_s:.3f} s, bit-identical to "
+                f"render_frame ({card})")
+        if torch.equal(frames[0], frames[1]) or torch.equal(frames[0], frames[2]):
+            raise AssertionError("two session frames are equal")
+
+        gcfg = cfg._replace(max_bounces=GRAD_BOUNCES)
+        targets = DiffTargets.from_scene(scene, cam)
+        (loss1, grads1), dt_1 = _wall(lambda: grad_image_loss(scene, gcfg, targets, 0, dev),
+                                      dev)
+        single = (loss1, grads1)
+        (loss, grads), dt_g, n_g = _launched(
+            lambda: grad_step_sharded(scene, gcfg, targets, 0, mesh), dev)
+        _need(n_g, PAIR, "sharded gradient step", dev)
+        launches.update(n_g)
+        say(f"[15 dist] grad_step_sharded max_bounces {GRAD_BOUNCES}: {dt_g:.3f} s, leaf-row "
+            f"launches {dict(n_g)}; grad_image_loss {dt_1:.3f} s; "
+            f"{_grad_gate(loss, tree_flatten(grads)[0], loss1, grads1, 'sharded step')} "
+            f"({card})")
+
+        sweep = scaling_sweep(scene, cfg, cam, (1,), repeats=2)
+        if set(sweep) != {1} or not sweep[1] > 0:
+            raise AssertionError(f"scaling_sweep gave {sweep}")
+        say(f"[15 dist] scaling_sweep {sweep} s ({card})")
+
+        outs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for shard in (True, False):
+                out, log = f"{tmp}/{shard}.npy", f"{tmp}/{shard}.jsonl"
+                args = ["--device", dev.type, "--scene", "indoor", "--width", str(w),
+                        "--height", str(h), "--spp", "1", "--frames", str(CLI_FRAMES),
+                        "--animate", *(["--shard"] if shard else [])]
+                rc, dt_c, n_c = _launched(
+                    lambda: cli.main([*args, "--output", out, "--metrics-jsonl", log]), dev)
+                if rc != 0:
+                    raise AssertionError(f"the CLI {args} returned {rc}")
+                _need(n_c, PAIR, "CLI run", dev)
+                if shard:
+                    launches.update(n_c)
+                outs[shard] = np.load(out)
+                with open(log) as fh:
+                    frame_s = [json.loads(ln)["frame_time_s"] for ln in fh]
+                say(f"[15 cli] {' '.join(args)}: {dt_c:.3f} s (scene build included), frame "
+                    f"times {frame_s} s, leaf-row launches {dict(n_c)} ({card})")
+        if not np.array_equal(outs[True], outs[False]):
+            raise AssertionError("the CLI's image with --shard differs from the one without")
+        say("[15 cli] the --shard image equals the unsharded one")
+    finally:
+        dist.destroy_process_group()
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_local_ranks(_dist_rank, DIST_RANKS, tmp, DIST_DEADLINE, device=str(dev),
+                                w=w, h=h)
+    for r, out in enumerate(ranks):
+        for what, n_r in (("frame", out["launches"]), ("gradient step", out["grad_launches"])):
+            _need(n_r, PAIR, f"rank {r}'s sharded {what}", dev)
+            launches.update(n_r)
+        say(f"[15 dist] rank {r} of {DIST_RANKS} ({out['backend']}, {dev}, lanes "
+            f"{out['lanes']}): frame {out['frame_s']:.3f} s, leaf-row launches "
+            f"{dict(out['launches'])}, {_image_gate(ref.cpu(), out['image'], f'rank {r}')}; "
+            f"gradient step {out['grad_s']:.3f} s, leaf-row launches "
+            f"{dict(out['grad_launches'])}, "
+            f"{_grad_gate(out['loss'], out['grads'], *single, f'rank {r} step')} ({card})")
+    return launches
+
+
 KERNELS = {
     "leaf_rows_closest": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
     "leaf_rows_any": ("surf_tpu_torch/csrc/leaf_rows.cu", "surf_tpu/accel/pallas_wide.py:1287"),
@@ -3029,6 +3226,8 @@ def main() -> int:
     timed("12 defer", phase_defer, dev)
     timed("13 grad", phase_grad, dev)
     for name, n in timed("14 animate / twolevel", phase_animate, dev).items():
+        launches[name] += n
+    for name, n in timed("15 dist / cli", phase_dist, dev).items():
         launches[name] += n
     say(f"[done] all phases in {time.perf_counter() - t0:.1f} s")
     rows = []

@@ -51,6 +51,7 @@ def test_port_runs_without_surf_tpu(tmp_path):
         import surf_tpu_torch
         for m in pkgutil.walk_packages(surf_tpu_torch.__path__, "surf_tpu_torch."):
             importlib.import_module(m.name)
+        assert {"surf_tpu_torch.dist", "surf_tpu_torch.app.cli"} <= set(sys.modules)
         import chip_smoke
         from surf_tpu_torch.accel import instanced
         from surf_tpu_torch.scene import builtin
